@@ -1,0 +1,105 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each kernel is one ``.cu`` file under ``kernels/<name>/csrc/`` that exports
+plain C entry points.  It is compiled for Hopper (``sm_90a``) into a shared
+library under ``build/kernels/`` at the repository root, named by a digest
+of its sources and flags, so an edited source is rebuilt and an unchanged
+one is reused.  Nothing is built when the package is imported: the first
+launch builds what it needs, and ``build`` compiles several kernels at once
+(one ``nvcc`` per source, all started together).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
+
+#: kernel name -> its source directory
+SOURCES = {"coded_matmul": _KERNELS_DIR / "coded_matmul" / "csrc"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    name: str
+    path: Path
+    seconds: float      # 0.0 when an up-to-date library was reused
+    log: str            # nvcc's output (ptxas register / spill report)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _sources(name: str):
+    return sorted(SOURCES[name].glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lives for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SOURCES[name].iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
+    """Compile every named kernel (default: all) that is not up to date,
+    one ``nvcc`` process per kernel, all running at once.  Raises with
+    nvcc's output when a compile fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results: Dict[str, BuildResult] = {}
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            results[name] = BuildResult(name, out, 0.0, "")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, _sources(name))]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        results[name] = BuildResult(name, out, seconds, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build([name])[name].path))
+    return _LIBS[name]

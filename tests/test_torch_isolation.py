@@ -1,0 +1,37 @@
+"""``repro_torch`` stands alone: importing it and every submodule loads
+neither JAX nor any module of the JAX package, and builds no kernel."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20                 # every module was imported
+    assert bad == "[]", bad
+
+
+def test_package_sources_never_name_jax():
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "from repro." not in text and "import repro." not in text, path
