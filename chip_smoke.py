@@ -1,4 +1,4 @@
-"""Run the PyTorch/CUDA port's main path once on an NVIDIA card.
+"""Run the PyTorch/CUDA port's main paths once on an NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -6,21 +6,43 @@ Phases, none of whose failures is caught (any fault exits non-zero):
 
 1. Device: require CUDA, print the card's name and power limit, turn TF32
    off for matrix products and convolutions.
-2. Build: compile every kernel of the path from its CUDA sources (nvcc).
-3. Kernel against plain version on the card: ``coded_matmul`` over the
-   test grid (n, k) x {fp32, bf16} at (M, K, N) = (256, 256, 128), and at
-   the paper-matvec shapes (A 12288 x 8192 fp32, n = 12, every k | 12,
-   N in {1, 128}), with the kernel's, the plain version's and one
-   ``torch.einsum``'s times beside the least time the card could take.
-4. Main path: for the three scenarios of examples/coded_matvec.py at
-   n = 12, plan k*, estimate the k-curve by Monte-Carlo on the card, sample
-   the workers' task times on the card, run the coded job at the
+2. Build: compile every kernel from its CUDA sources (one nvcc per
+   kernel, all at once): coded_matmul, flash_attention, ssd_scan.
+3. Kernel against plain version on the card, each with the kernel's, the
+   plain version's and (where one exists) one PyTorch call's times beside
+   the least time the card could take:
+   - ``coded_matmul`` over the test grid (n, k) x {fp32, bf16} at
+     (M, K, N) = (256, 256, 128), and at the paper-matvec shapes
+     (A 12288 x 8192 fp32, n = 12, every k | 12, N in {1, 128});
+   - ``flash_attention`` on the reference grid (B,S,H,KV,D) =
+     (2,256,4,2,32) causal and not in fp32, (1,128,2,2,64) in bf16, a
+     ragged S = 200, and the qwen3-0.6b shapes of phase 5 (H 16, KV 8,
+     D 128; B 2 x 64 tokens in fp32, B 2 x S 4096 in bf16), against
+     ``F.scaled_dot_product_attention``; at the B 2 x S 4096 shape two
+     planted faults must fail the tolerance;
+   - ``ssd_scan`` on the reference grid (2,64,3,16,8) and (1,128,2,32,16)
+     x chunk {4, 16, 64} in fp32, and the mamba2-1.3b shapes of phase 5
+     (H 64, P 64, N 128; B 2 x 64 tokens in fp32, B 2 x S 4096 with
+     chunk 256 in bf16).
+4. Coded mat-vec path: for the three scenarios of examples/coded_matvec.py
+   at n = 12, plan k*, estimate the k-curve by Monte-Carlo on the card,
+   sample the workers' task times on the card, run the coded job at the
    paper-matvec size through the kernel at k* as a mat-vec (N = 1) and
    with a batch of N = 128 right-hand sides, decode from the fastest k*
    workers and hold the result to A @ X.  The kernel's launch count is
    zeroed before each job and read after it.
-5. One JSON line listing every kernel of the path with its launches and
-   times; the last line is the device record.
+5. Serving path at full width, for qwen3-0.6b and then mamba2-1.3b:
+   parameters made on the card from a seeded generator; prefill logits
+   (``api.forward``, fp32 compute, B 2, 64 tokens) against token-by-token
+   ``api.decode_step``; a timed bf16 prefill at B 2 x S 4096 (first and
+   warm call, CUDA events); the hedged serving loop at the reference's
+   defaults (batch 4, prompt 32, gen 32, straggle pareto:0.05:1.8); one
+   decode step of the loop's shape timed by CUDA events.  One more prefill
+   and one more decode step run under ``torch.profiler`` for the device
+   operations, device time by kernel group and the device's idle share.  The kernel's launch count is zeroed
+   before each forward and read after it: one launch per layer.
+6. One JSON line listing every kernel with its launches and times; the
+   last line is the device record.
 """
 from __future__ import annotations
 
@@ -36,6 +58,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/coded_matmul/csrc/coded_matmul.cu"
 REPLACES = "src/repro/kernels/coded_matmul/kernel.py:52"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:63"
 
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -52,6 +78,43 @@ SMALL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 MAIN_TOL = 1e-4
 DECODE_TOL = 1e-3                              # examples/quickstart.py:86
 MAIN_WIDTHS = (1, 128)
+
+# flash_attention: (B, S, H, KV, D), dtype, causal.  The reference grid and
+# tolerances (tests/test_kernels.py:32-62), a ragged S, and the shapes the
+# serving path gives it: qwen3-0.6b at 64 tokens in fp32 (phase 5's prefill
+# check) and at 4096 tokens in bf16 (phase 5's timed prefill).
+FLASH_GRID = [((2, 256, 4, 2, 32), torch.float32, True),
+              ((2, 256, 4, 2, 32), torch.float32, False),
+              ((1, 128, 2, 2, 64), torch.bfloat16, True),
+              ((2, 200, 4, 2, 32), torch.float32, True),
+              ((2, 200, 4, 2, 32), torch.float32, False),
+              ((2, 64, 16, 8, 128), torch.float32, True)]
+FLASH_MAIN = ((2, 4096, 16, 8, 128), torch.bfloat16, True)
+# |out - ref| <= atol + rtol |ref|, (atol, rtol) by dtype.  fp32: the
+# reference's 2e-5 (tests/test_kernels.py:48).  bf16: both sides compute in
+# fp32 and round the output once to bf16, so they differ by at most one
+# bf16 step, 2^-7 |o| (under rtol 1e-2), plus fp32 summation-order noise
+# (~1e-6, under atol 1e-3).  The atol stays well below the outputs' size at
+# the main shape (|o| ~ 1.65 / sqrt(t) on row t, ~0.03 at t = 4096), so a
+# fault that moves late rows by a fraction of their size fails; two planted
+# faults at the main shape show that it does (``flash_compare``).
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 1e-2)}
+# planted faults at the main shape, built from the plain version: the
+# softmax scale halved, and KV tile [0, 64) dropped from rows >= 1024
+FLASH_DROP_ROWS, FLASH_DROP_TILE = 1024, 64
+# ssd_scan: (B, S, H, P, N) x chunk, the reference grid in fp32
+# (tests/test_kernels.py:65-83, 2e-5 of max|y|), the mamba2-1.3b shape of
+# phase 5's prefill check (64 tokens, one chunk, fp32), and of its timed
+# prefill (bf16 x, B and C; dt and A fp32; 1e-2 of max|y|: the output is
+# rounded to bf16, 2^-8 of each element).
+SSD_GRID = [(shape, chunk) for shape in [(2, 64, 3, 16, 8), (1, 128, 2, 32, 16)]
+            for chunk in (4, 16, 64)] + [((2, 64, 64, 64, 128), 64)]
+SSD_MAIN = ((2, 4096, 64, 64, 128), 256)
+SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# prefill logits against token-by-token decode, fp32 compute
+# (tests/test_models_smoke.py:114)
+PREFILL_TOL = 2e-4
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-1.3b")
 
 
 def phase(name: str) -> None:
@@ -108,6 +171,22 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline(nbytes: float, ops: float, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_turns(fns: dict, order, reps: dict) -> dict:
+    """Mean ms of each function over its turns in ``order``."""
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(time_ms(fns[name], reps[name]))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
 def bound(G, A, X) -> tuple:
     """(bound_ms, bound_by): each input read once, the output written
     once, against 2*k*M*K*N + 2*n*k*M*N operations (the product with the
@@ -119,9 +198,7 @@ def bound(G, A, X) -> tuple:
     nbytes = G.numel() * G.element_size() + (A.numel() + X.numel()
                                              + n * M * N) * es
     ops = 2.0 * k * M * K * N + 2.0 * n * k * M * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[A.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, ops, A.dtype)
 
 
 def compare(G, A, X, tol: float, reps: int) -> dict:
@@ -142,14 +219,12 @@ def compare(G, A, X, tol: float, reps: int) -> dict:
     fns = {"plain": lambda: coded_matmul_ref(G, A, X),
            "kernel": lambda: coded_matmul(G, A, X),
            "library": lambda: torch.einsum("ij,jmk,kn->imn", G, A, X)}
-    times = {name: [] for name in fns}
-    for name in ["plain", "kernel", "library", "library", "kernel", "plain"]:
-        times[name].append(time_ms(fns[name], reps))
+    t = timed_turns(fns, ["plain", "kernel", "library", "library", "kernel",
+                          "plain"], dict.fromkeys(fns, reps))
     b_ms, b_by = bound(G, A, X)
     row = dict(max_abs_err=max_abs, rel_err=max_abs / scale, ok=ok,
-               ms=sum(times["kernel"]) / 2, plain_ms=sum(times["plain"]) / 2,
-               library_ms=sum(times["library"]) / 2, bound_ms=b_ms,
-               bound_by=b_by)
+               ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+               bound_ms=b_ms, bound_by=b_by)
     n, k = G.shape
     _, M, K = A.shape
     print(f"  n={n:2d} k={k:2d} M={M:5d} K={K} N={X.shape[1]:3d} "
@@ -197,6 +272,167 @@ def kernel_phase(cfg, seed: int) -> dict:
     return rows
 
 
+def excess(out, ref, atol: float, rtol: float) -> float:
+    """max |out - ref| / (atol + rtol |ref|): at most 1 within tolerance."""
+    ref = ref.float()
+    return float(((out.float() - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def planted_faults(q, k, v, ref, atol: float, rtol: float) -> None:
+    """Show that the tolerance catches a wrong kernel at this shape: two
+    faulted outputs, made with the plain version, must fail the check."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    half_scale = attention_ref(q * 0.5, k, v, True)     # exact in bf16
+    dropped = ref.clone()
+    r, t = FLASH_DROP_ROWS, FLASH_DROP_TILE
+    # rows r.. without keys [0, t): causal rows of the slice sit at key
+    # positions (Sk - Sq) + i = r - t + i, i.e. r + i of the full input
+    dropped[:, r:] = attention_ref(q[:, r:], k[:, t:], v[:, t:], True)
+    for name, out in (("softmax scale x0.5", half_scale),
+                      (f"KV tile [0, {t}) dropped from rows >= {r}", dropped)):
+        e = excess(out, ref, atol, rtol)
+        print(f"    planted fault, {name}: max |out-ref| / limit = {e:.3g}"
+              f"  {'caught' if e > 1 else 'MISSED'}", flush=True)
+        assert e > 1, f"the tolerance misses a planted fault: {name}"
+
+
+def flash_compare(shape, dtype, causal: bool, gen, reps: int,
+                  plant: bool = False) -> dict:
+    """flash_attention against its plain version on one input, then the
+    kernel's, the plain version's and SDPA's times in turns (plain,
+    kernel, sdpa, sdpa, kernel, plain).  ``plant``: also show that the
+    tolerance catches two planted faults on this input."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    B, S, H, KV, D = shape
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, causal)
+    ref = attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    atol, rtol = FLASH_TOL[dtype]
+    max_abs = float((out.float() - ref.float()).abs().max())
+    ratio = excess(out, ref, atol, rtol)
+    ok = ratio <= 1
+    if plant:
+        planted_faults(q, k, v, ref, atol, rtol)
+    del out, ref
+    fns = {"plain": lambda: attention_ref(q, k, v, causal),
+           "kernel": lambda: flash_attention(q, k, v, causal),
+           "library": lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=causal, enable_gqa=True)}
+    t = timed_turns(fns, ["plain", "kernel", "library", "library", "kernel",
+                          "plain"],
+                    {"plain": max(1, reps // 2), "kernel": reps,
+                     "library": reps})
+    pairs = S * (S + 1) / 2 if causal else S * S
+    b_ms, b_by = roofline(2 * (q.numel() + k.numel()) * q.element_size(),
+                          4.0 * B * H * pairs * D, dtype)
+    row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
+               plain_ms=t["plain"], library_ms=t["library"], bound_ms=b_ms,
+               bound_by=b_by)
+    print(f"  flash B={B} S={S:4d} H={H:2d} KV={KV} D={D:3d} "
+          f"{'causal' if causal else 'full  '} {str(dtype)[6:]:8s} "
+          f"max_abs_err={max_abs:.3e} (/limit {ratio:.3f}; tol {atol:g} abs "
+          f"+ {rtol:g} rel) kernel {t['kernel']:.4f} "
+          f"ms  plain {t['plain']:.4f} ms  sdpa {t['library']:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})  {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    return row
+
+
+def ssd_inputs(shape, dtype, gen, model_law: bool):
+    """x, dt, A, B, C on the card.  The reference test's laws (dt =
+    softplus(normal), A = -exp(normal)) or the model's (dt in [1e-3, 0.1],
+    A in [-16, -1))."""
+    B, S, H, P, N = shape
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    if model_law:
+        dt = torch.empty((B, S, H), device="cuda").uniform_(
+            1e-3, 1e-1, generator=gen)
+        A = -torch.empty((H,), device="cuda").uniform_(1.0, 16.0,
+                                                       generator=gen)
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device="cuda"))
+        A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
+    Bm = torch.randn((B, S, N), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, S, N), generator=gen, device="cuda").to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
+                model_law: bool = False) -> dict:
+    """ssd_scan against its plain version (the chunked form) on one input,
+    then the kernel's and the plain version's times in turns (plain,
+    kernel, kernel, plain).  No single PyTorch call computes the scan."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    args = ssd_inputs(shape, dtype, gen, model_law)
+    out = ssd_scan(*args, chunk=chunk)
+    ref = ssd_chunked(*args, chunk)[0]
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    scale = float(ref.float().abs().max())
+    max_abs = float((out.float() - ref.float()).abs().max())
+    tol = SSD_TOL[dtype]
+    ok = max_abs <= tol * scale
+    del out, ref
+    fns = {"plain": lambda: ssd_chunked(*args, chunk),
+           "kernel": lambda: ssd_scan(*args, chunk=chunk)}
+    t = timed_turns(fns, ["plain", "kernel", "kernel", "plain"],
+                    {"plain": max(1, reps // 2), "kernel": reps})
+    B, S, H, P, N = shape
+    nc, tri = S // chunk, chunk * (chunk + 1) / 2
+    # C B^T over the causal half once per (batch row, chunk); per head the
+    # causal half of the weighted sum, C h^T and the state update
+    ops = B * nc * (2.0 * tri * N + H * (2.0 * tri * P + 4.0 * chunk * N * P))
+    x, dt, A, Bm, _ = args
+    nbytes = (2 * x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
+              + 2 * Bm.numel() * Bm.element_size())
+    b_ms, b_by = roofline(nbytes, ops, torch.float32)
+    row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
+               plain_ms=t["plain"], library_ms=None, bound_ms=b_ms,
+               bound_by=b_by)
+    print(f"  ssd B={B} S={S:4d} H={H:2d} P={P:2d} N={N:3d} chunk={chunk:3d} "
+          f"{str(dtype)[6:]:8s} max_abs_err={max_abs:.3e} "
+          f"rel={max_abs / scale:.2e} (tol {tol:g} of max|y|) kernel "
+          f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})  {'ok' if ok else 'MISMATCH'}", flush=True)
+    return row
+
+
+def model_kernel_phase(seed: int) -> dict:
+    """Phase 3, continued: the serving path's two kernels.  Returns the
+    rows at the main-path shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    failures = []
+    print("flash_attention:")
+    for shape, dtype, causal in FLASH_GRID:
+        if not flash_compare(shape, dtype, causal, gen, reps=10)["ok"]:
+            failures.append(("flash_attention", shape, dtype, causal))
+    flash = flash_compare(*FLASH_MAIN, gen, reps=5, plant=True)
+    if not flash["ok"]:
+        failures.append(("flash_attention", FLASH_MAIN))
+    print("ssd_scan:")
+    for shape, chunk in SSD_GRID:
+        if not ssd_compare(shape, chunk, torch.float32, gen, reps=10)["ok"]:
+            failures.append(("ssd_scan", shape, chunk))
+    ssd = ssd_compare(*SSD_MAIN, torch.bfloat16, gen, reps=5, model_law=True)
+    if not ssd["ok"]:
+        failures.append(("ssd_scan", SSD_MAIN))
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{failures}")
+    return {"flash_attention": flash, "ssd_scan": ssd}
+
+
 def main_path_phase(cfg, seed: int) -> dict:
     """The port's main path; returns {(k, N): launches}."""
     from repro_torch.api import Planner, Scenario
@@ -205,7 +441,7 @@ def main_path_phase(cfg, seed: int) -> dict:
                                   job_completion_times, mds_generator,
                                   sample_task_times)
     from repro_torch.kernels.coded_matmul import coded_matmul
-    phase("4. main path")
+    phase("4. coded mat-vec path")
     n = cfg.n_workers
     gen = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.randn((cfg.rows, cfg.cols), generator=gen, device="cuda")
@@ -273,6 +509,166 @@ def main_path_phase(cfg, seed: int) -> dict:
     return launches
 
 
+def profile_call(label: str, fn) -> None:
+    """One more call of ``fn`` under ``torch.profiler``: the device
+    operations it launched, device time by kernel group and the device's
+    idle share of the call's span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"  profiled {label}: span {span_ms:.2f} ms; the profiler saw "
+              f"no device time: breakdown not measured")
+        return
+    groups = {}
+    for e in kernels:
+        low = e.key.lower()
+        group = ("flash_attention" if "flash_fwd" in low else
+                 "ssd_scan" if "ssd_scan" in low else
+                 "matmul" if any(w in low for w in ("gemm", "nvjet", "cutlass",
+                                                    "sm90_xmma")) else
+                 "other")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total
+    busy_ms = sum(groups.values()) / 1e3
+    idle = 1 - busy_ms / span_ms
+    print(f"  profiled {label}: span {span_ms:.3f} ms (CUDA events, under the "
+          f"profiler), {sum(e.count for e in kernels)} device operations, "
+          f"busy {busy_ms:.3f} ms, device idle {idle:.1%} of the span")
+    if idle < 0:
+        print(f"  WARNING: device time exceeds the span by {-idle:.1%}: the "
+              f"busy count is wrong (overlap or double counting); idle share "
+              f"not measured", flush=True)
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {group:16s} {us / 1e3:9.3f} ms  {us / 1e3 / span_ms:6.1%}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"    top: {e.self_device_time_total / 1e3:9.3f} ms x{e.count:4d} "
+              f"{e.key[:90]}")
+
+
+def serving_phase(seed: int) -> dict:
+    """The serving path at full width; returns {kernel: launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    phase("5. serving path at full width")
+    counters = {"qwen3-0.6b": ("flash_attention", flash_attention),
+                "mamba2-1.3b": ("ssd_scan", ssd_scan)}
+    launches = {}
+    for arch in SERVE_ARCHS:
+        name, counter = counters[arch]
+        cfg = get_config(arch)
+        layers = cfg.num_layers
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, gen)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{arch}: {n_params / 1e6:.1f} M parameters, fp32, made on "
+              f"the card in {time.perf_counter() - t0:.2f} s (host clock)")
+
+        def forward(c, toks):
+            counter.launches = 0
+            logits = api.forward(c, model, toks)
+            torch.cuda.synchronize()
+            assert counter.launches == layers, (arch, counter.launches)
+            launches[name] = launches.get(name, 0) + counter.launches
+            assert torch.isfinite(logits).all()
+            assert logits.shape == (*toks.shape, api.padded_vocab(c))
+            return logits
+
+        # prefill against token-by-token decode, fp32 compute
+        cfg32 = cfg.scaled(compute_dtype="float32")
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                             device="cuda")
+        full = forward(cfg32, toks)
+        cache = api.init_cache(cfg32, 2, 64, dtype="float32", device="cuda")
+        steps = []
+        for t in range(64):
+            lg, cache = api.decode_step(cfg32, model, cache, toks[:, t:t + 1],
+                                        t)
+            steps.append(lg[:, 0])
+        dec = torch.stack(steps, dim=1)
+        diff = (dec - full).abs()
+        ok = bool((diff <= PREFILL_TOL + PREFILL_TOL * full.abs()).all())
+        print(f"  prefill (fp32, B 2 x 64 tokens, {name} launches "
+              f"{layers}) against 64 decode steps: max|diff| "
+              f"{float(diff.max()):.3e}, max|logits| "
+              f"{float(full.abs().max()):.3f} (tol {PREFILL_TOL:g} abs + "
+              f"rel)  {'ok' if ok else 'MISMATCH'}", flush=True)
+        assert ok, (arch, float(diff.max()))
+        del full, dec, diff, cache, steps
+
+        # timed prefill in the config's own compute dtype
+        toks = torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen,
+                             device="cuda")
+        ms = []
+        for _ in ("first", "warm"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = forward(cfg, toks)
+            end.record()
+            torch.cuda.synchronize()
+            assert logits.dtype == torch.bfloat16
+            ms.append(start.elapsed_time(end))
+            del logits
+        print(f"  prefill ({cfg.compute_dtype}, B 2 x S 4096, {name} "
+              f"launches {layers} each): first call {ms[0]:.2f} ms, warm "
+              f"{ms[1]:.2f} ms = {2 * 4096 / ms[1] * 1e3:.0f} tokens/s "
+              f"(CUDA events)", flush=True)
+        profile_call("prefill", lambda: forward(cfg, toks))
+
+        # the hedged serving loop at the reference's defaults
+        dist = serve.parse_dist("pareto:0.05:1.8")
+        r = serve.plan_replicas(dist, 4)
+        print(f"  hedging plan: r = {r} replicas (tail gain "
+              f"{serve.hedge_gain(dist, r):.2f}x)")
+        prompt = torch.randint(1, cfg.vocab_size, (4, 32), generator=gen,
+                               device="cuda")
+        res = serve.serve(cfg, model, prompt, 32, dist, r)
+        assert res.tokens.shape == (4, 32)
+        in_vocab = (res.tokens >= 0) & (res.tokens < api.padded_vocab(cfg))
+        assert in_vocab.all(), res.tokens
+        print(f"  serve: batch 4, prompt 32 (decode steps {res.prompt_s:.3f} "
+              f"s), gen 32 in {res.gen_s:.3f} s = {res.tokens_per_s:.1f} "
+              f"tokens/s (host clock); tokens >= vocab_size "
+              f"{int((res.tokens >= cfg.vocab_size).sum())} of "
+              f"{res.tokens.size} (argmax over the padded vocab, as the "
+              f"reference's)")
+        print(f"  greedy tokens, row 0: {res.tokens[0].tolist()}")
+        print(f"  simulated service latency: hedged {res.sim_latency:.2f} vs "
+              f"unhedged E {res.unhedged:.2f} (r={r})", flush=True)
+
+        # one decode step of the serve loop's shape, timed and profiled
+        cache = api.init_cache(cfg, 4, 64, dtype="float32", device="cuda")
+        tok = prompt[:, :1]
+        _, cache = api.decode_step(cfg, model, cache, tok, 0)
+        step_ms = time_ms(lambda: api.decode_step(cfg, model, cache, tok, 1),
+                          reps=20)
+        print(f"  decode step (batch 4, position 1, {cfg.compute_dtype}): "
+              f"{step_ms:.3f} ms a step (CUDA events, 20 steps)")
+        profile_call("decode step",
+                     lambda: api.decode_step(cfg, model, cache, tok, 1))
+        del cache
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -282,9 +678,11 @@ def main() -> None:
     from repro_torch.configs import CONFIG
     build_phase()
     timed = kernel_phase(CONFIG, args.seed)
+    model_rows = model_kernel_phase(args.seed)
     launches = main_path_phase(CONFIG, args.seed)
+    serve_launches = serving_phase(args.seed)
 
-    phase("5. kernels")
+    phase("6. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]
@@ -295,6 +693,21 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    shapes = {"flash_attention": "qwen3-0.6b prefill B=2,S=4096,H=16,KV=8,"
+                                 "D=128,bf16,causal",
+              "ssd_scan": "mamba2-1.3b prefill B=2,S=4096,H=64,P=64,N=128,"
+                          "chunk=256,bf16"}
+    sources = {"flash_attention": (FLASH_SOURCE, FLASH_REPLACES),
+               "ssd_scan": (SSD_SOURCE, SSD_REPLACES)}
+    for name, row in model_rows.items():
+        kernels.append({
+            "name": f"{name}[{shapes[name]}]", "route": "cuda",
+            "source": sources[name][0], "replaces": sources[name][1],
+            "launches": serve_launches.get(name, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,10 @@ imports ``repro``:
     arrays) becomes a tensor on ``device``; bfloat16 arrays stay bfloat16;
   * lists, tuples and other dictionaries are converted element-wise;
     numbers, strings and None pass through.
+
+``params_to_port(cfg, params, device)`` takes the reference's model
+parameters (``models.api.init_params``'s pytree, as numpy arrays or the
+reference's arrays) and returns this package's model module holding them.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ from .core.planner import Plan
 from .core.policy import Policy, RetryPolicy
 from .core.scenario import (DeterministicArrivals, FailureModel,
                             MMPPArrivals, PoissonArrivals, Scenario)
+from .models.api import model_class
 
-__all__ = ["to_port"]
+__all__ = ["params_to_port", "to_port"]
 
 _RECORDS = (ShiftedExp, Pareto, BiModal, Scenario, Policy, RetryPolicy, Plan,
             FailureModel, PoissonArrivals, DeterministicArrivals,
@@ -87,3 +92,40 @@ def to_port(obj, device=DEFAULT_DEVICE):
     if hasattr(obj, "__array__"):
         return _tensor(np.asarray(obj), device)
     raise TypeError(f"cannot carry {type(obj).__name__} across")
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = value
+    return out
+
+
+def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE):
+    """The model module of ``cfg``'s family holding the reference's
+    parameter pytree ``params`` (``{"layers": {...}, "embed": ...}``).
+
+    Every name of the pytree must be a parameter of the module and every
+    parameter a name of the pytree, with the same shape; anything else
+    raises.  Values keep their dtype.
+    """
+    model = model_class(cfg)(cfg, device=resolve(device))
+    theirs = _flatten(params)
+    ours = dict(model.named_parameters())
+    missing = sorted(set(ours) - set(theirs))
+    extra = sorted(set(theirs) - set(ours))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter names differ: missing from "
+                         f"the pytree {missing}, not in the model {extra}")
+    tensors = to_port(theirs, device)
+    for name, p in ours.items():
+        t = tensors[name]
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{cfg.name}: {name} has shape "
+                             f"{tuple(t.shape)}, the model wants "
+                             f"{tuple(p.shape)}")
+        p.data = t
+    return model
