@@ -10,16 +10,18 @@ Phases, none of whose failures is caught (any fault exits non-zero):
    kernel, all at once): coded_matmul, flash_attention, ssd_scan.
 3. Kernel against plain version on the card, each with the kernel's, the
    plain version's and (where one exists) one PyTorch call's times beside
-   the least time the card could take:
+   the least time the card could take, the achieved rate (TFLOP/s or
+   GB/s, by what bounds it) and the bound's share of the kernel's time:
    - ``coded_matmul`` over the test grid (n, k) x {fp32, bf16} at
      (M, K, N) = (256, 256, 128), and at the paper-matvec shapes
      (A 12288 x 8192 fp32, n = 12, every k | 12, N in {1, 128});
-   - ``flash_attention`` on the reference grid (B,S,H,KV,D) =
-     (2,256,4,2,32) causal and not in fp32, (1,128,2,2,64) in bf16, a
-     ragged S = 200, and the qwen3-0.6b shapes of phase 5 (H 16, KV 8,
-     D 128; B 2 x 64 tokens in fp32, B 2 x S 4096 in bf16), against
-     ``F.scaled_dot_product_attention``; at the B 2 x S 4096 shape two
-     planted faults must fail the tolerance;
+   - ``flash_attention`` on the reference grid (B,Sq,Sk,H,KV,D) =
+     (2,256,256,4,2,32) causal and not in fp32, (1,128,128,2,2,64) in
+     bf16, a ragged S = 200, the bf16 schedule at D 16, 32 and 64 with
+     ragged lengths and causal rows offset by Sk - Sq, and the qwen3-0.6b
+     shapes of phase 5 (H 16, KV 8, D 128; B 2 x 64 tokens in fp32, B 2 x
+     S 4096 in bf16), against ``F.scaled_dot_product_attention``; at the
+     B 2 x S 4096 shape two planted faults must fail the tolerance;
    - ``ssd_scan`` on the reference grid (2,64,3,16,8) and (1,128,2,32,16)
      x chunk {4, 16, 64} in fp32, and the mamba2-1.3b shapes of phase 5
      (H 64, P 64, N 128; B 2 x 64 tokens in fp32, B 2 x S 4096 with
@@ -48,6 +50,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,17 +83,27 @@ MAIN_TOL = 1e-4
 DECODE_TOL = 1e-3                              # examples/quickstart.py:86
 MAIN_WIDTHS = (1, 128)
 
-# flash_attention: (B, S, H, KV, D), dtype, causal.  The reference grid and
-# tolerances (tests/test_kernels.py:32-62), a ragged S, and the shapes the
-# serving path gives it: qwen3-0.6b at 64 tokens in fp32 (phase 5's prefill
-# check) and at 4096 tokens in bf16 (phase 5's timed prefill).
-FLASH_GRID = [((2, 256, 4, 2, 32), torch.float32, True),
-              ((2, 256, 4, 2, 32), torch.float32, False),
-              ((1, 128, 2, 2, 64), torch.bfloat16, True),
-              ((2, 200, 4, 2, 32), torch.float32, True),
-              ((2, 200, 4, 2, 32), torch.float32, False),
-              ((2, 64, 16, 8, 128), torch.float32, True)]
-FLASH_MAIN = ((2, 4096, 16, 8, 128), torch.bfloat16, True)
+# flash_attention: (B, Sq, Sk, H, KV, D), dtype, causal.  The reference grid
+# and tolerances (tests/test_kernels.py:32-62), a ragged S, the bf16
+# schedule at every head dim with ragged lengths and causal rows offset by
+# Sk - Sq, and the shapes the serving path gives it: qwen3-0.6b at 64 tokens
+# in fp32 (phase 5's prefill check) and at 4096 tokens in bf16 (phase 5's
+# timed prefill).
+FLASH_GRID = [((2, 256, 256, 4, 2, 32), torch.float32, True),
+              ((2, 256, 256, 4, 2, 32), torch.float32, False),
+              ((1, 128, 128, 2, 2, 64), torch.bfloat16, True),
+              ((2, 200, 200, 4, 2, 32), torch.float32, True),
+              ((2, 200, 200, 4, 2, 32), torch.float32, False),
+              ((2, 64, 64, 16, 8, 128), torch.float32, True),
+              ((2, 300, 300, 4, 2, 16), torch.bfloat16, True),
+              ((2, 1, 64, 4, 2, 16), torch.bfloat16, True),
+              ((2, 200, 200, 4, 2, 32), torch.bfloat16, False),
+              ((2, 63, 200, 8, 1, 32), torch.bfloat16, True),
+              ((2, 129, 129, 4, 2, 64), torch.bfloat16, True),
+              ((2, 129, 129, 4, 2, 64), torch.bfloat16, False),
+              ((2, 5, 70, 4, 4, 64), torch.bfloat16, True),
+              ((2, 65, 130, 16, 8, 128), torch.bfloat16, True)]
+FLASH_MAIN = ((2, 4096, 4096, 16, 8, 128), torch.bfloat16, True)
 # |out - ref| <= atol + rtol |ref|, (atol, rtol) by dtype.  fp32: the
 # reference's 2e-5 (tests/test_kernels.py:48).  bf16: both sides compute in
 # fp32 and round the output once to bf16, so they differ by at most one
@@ -142,6 +156,32 @@ def device_phase() -> str:
     return smi
 
 
+def ptxas_report(log: str) -> list:
+    """(function, registers, spill-store bytes, spill-load bytes) for each
+    entry function in nvcc's ``-Xptxas -v`` output, names demangled where
+    ``c++filt`` is on the PATH."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and spills is not None:
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for r, full in zip(rows, names):
+            r[0] = full.replace("(anonymous namespace)::", "").split("(")[0]
+            r[0] = r[0].removeprefix("void ")
+    return rows
+
+
 def build_phase() -> None:
     phase("2. build")
     from repro_torch.kernels import _build
@@ -150,9 +190,13 @@ def build_phase() -> None:
     for r in results.values():
         print(f"built {r.name} in {r.seconds:.2f} s -> "
               f"{r.path.relative_to(ROOT)}")
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+        report = ptxas_report(r.log)
+        for fn, regs, stores, loads in report:
+            print(f"  {fn}: {regs} registers, spill stores {stores} B, "
+                  f"spill loads {loads} B")
+        spilled = [fn for fn, _, stores, loads in report if stores or loads]
+        print(f"  {len(report)} entry functions, "
+              f"{'spills in ' + ', '.join(spilled) if spilled else 'no spills'}")
     print(f"build phase {time.perf_counter() - t0:.2f} s")
 
 
@@ -179,6 +223,15 @@ def roofline(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rate(ms: float, nbytes: float, ops: float, bound_ms: float,
+         bound_by: str) -> str:
+    """The achieved rate of what bounds the kernel, and the bound's share
+    of its time."""
+    achieved = (f"{ops / ms / 1e9:.1f} TFLOP/s" if bound_by == "operations"
+                else f"{nbytes / ms / 1e6:.0f} GB/s")
+    return f"{achieved}, {bound_ms / ms:.1%} of bound"
+
+
 def timed_turns(fns: dict, order, reps: dict) -> dict:
     """Mean ms of each function over its turns in ``order``."""
     times = {name: [] for name in fns}
@@ -188,9 +241,10 @@ def timed_turns(fns: dict, order, reps: dict) -> dict:
 
 
 def bound(G, A, X) -> tuple:
-    """(bound_ms, bound_by): each input read once, the output written
-    once, against 2*k*M*K*N + 2*n*k*M*N operations (the product with the
-    k source blocks, then the encode) at the inputs' peak rate."""
+    """(bound_ms, bound_by, bytes, operations): each input read once, the
+    output written once, against 2*k*M*K*N + 2*n*k*M*N operations (the
+    product with the k source blocks, then the encode) at the inputs' peak
+    rate."""
     n, k = G.shape
     _, M, K = A.shape
     N = X.shape[1]
@@ -198,7 +252,7 @@ def bound(G, A, X) -> tuple:
     nbytes = G.numel() * G.element_size() + (A.numel() + X.numel()
                                              + n * M * N) * es
     ops = 2.0 * k * M * K * N + 2.0 * n * k * M * N
-    return roofline(nbytes, ops, A.dtype)
+    return (*roofline(nbytes, ops, A.dtype), nbytes, ops)
 
 
 def compare(G, A, X, tol: float, reps: int) -> dict:
@@ -221,7 +275,7 @@ def compare(G, A, X, tol: float, reps: int) -> dict:
            "library": lambda: torch.einsum("ij,jmk,kn->imn", G, A, X)}
     t = timed_turns(fns, ["plain", "kernel", "library", "library", "kernel",
                           "plain"], dict.fromkeys(fns, reps))
-    b_ms, b_by = bound(G, A, X)
+    b_ms, b_by, nbytes, ops = bound(G, A, X)
     row = dict(max_abs_err=max_abs, rel_err=max_abs / scale, ok=ok,
                ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
                bound_ms=b_ms, bound_by=b_by)
@@ -232,7 +286,8 @@ def compare(G, A, X, tol: float, reps: int) -> dict:
           f"rel={row['rel_err']:.2e} (tol {tol:g}) "
           f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
           f"einsum {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
-          f"({b_by})  {'ok' if ok else 'MISMATCH'}", flush=True)
+          f"({b_by}; {rate(row['ms'], nbytes, ops, b_ms, b_by)})  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     return row
 
 
@@ -305,10 +360,10 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    B, S, H, KV, D = shape
-    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    B, Sq, Sk, H, KV, D = shape
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
     out = flash_attention(q, k, v, causal)
     ref = attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
@@ -322,27 +377,35 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
         planted_faults(q, k, v, ref, atol, rtol)
     del out, ref
     fns = {"plain": lambda: attention_ref(q, k, v, causal),
-           "kernel": lambda: flash_attention(q, k, v, causal),
-           "library": lambda: F.scaled_dot_product_attention(
-               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-               is_causal=causal, enable_gqa=True)}
-    t = timed_turns(fns, ["plain", "kernel", "library", "library", "kernel",
-                          "plain"],
-                    {"plain": max(1, reps // 2), "kernel": reps,
-                     "library": reps})
-    pairs = S * (S + 1) / 2 if causal else S * S
-    b_ms, b_by = roofline(2 * (q.numel() + k.numel()) * q.element_size(),
-                          4.0 * B * H * pairs * D, dtype)
+           "kernel": lambda: flash_attention(q, k, v, causal)}
+    # SDPA's causal mask is aligned to the top left: the same function
+    # only where Sq == Sk or nothing is masked
+    if Sq == Sk or not causal:
+        fns["library"] = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+    order = [n for n in ("plain", "kernel", "library", "library", "kernel",
+                         "plain") if n in fns]
+    t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
+                                 "library": reps})
+    # q rows i see keys up to (Sk - Sq) + i under the causal mask
+    pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) / 2 if causal else Sq * Sk
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    ops = 4.0 * B * H * pairs * D
+    b_ms, b_by = roofline(nbytes, ops, dtype)
+    library = t.get("library")
     row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
-               plain_ms=t["plain"], library_ms=t["library"], bound_ms=b_ms,
+               plain_ms=t["plain"], library_ms=library, bound_ms=b_ms,
                bound_by=b_by)
-    print(f"  flash B={B} S={S:4d} H={H:2d} KV={KV} D={D:3d} "
+    sdpa = f"{library:.4f} ms" if library is not None else "n/a (offset rows)"
+    print(f"  flash B={B} Sq={Sq:4d} Sk={Sk:4d} H={H:2d} KV={KV} D={D:3d} "
           f"{'causal' if causal else 'full  '} {str(dtype)[6:]:8s} "
           f"max_abs_err={max_abs:.3e} (/limit {ratio:.3f}; tol {atol:g} abs "
           f"+ {rtol:g} rel) kernel {t['kernel']:.4f} "
-          f"ms  plain {t['plain']:.4f} ms  sdpa {t['library']:.4f} ms  "
-          f"bound {b_ms:.4f} ms ({b_by})  {'ok' if ok else 'MISMATCH'}",
-          flush=True)
+          f"ms  plain {t['plain']:.4f} ms  sdpa {sdpa}  "
+          f"bound {b_ms:.4f} ms ({b_by}; "
+          f"{rate(t['kernel'], nbytes, ops, b_ms, b_by)})  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     return row
 
 
@@ -403,7 +466,8 @@ def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
           f"{str(dtype)[6:]:8s} max_abs_err={max_abs:.3e} "
           f"rel={max_abs / scale:.2e} (tol {tol:g} of max|y|) kernel "
           f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by})  {'ok' if ok else 'MISMATCH'}", flush=True)
+          f"{b_ms:.4f} ms ({b_by}; {rate(t['kernel'], nbytes, ops, b_ms, b_by)})"
+          f"  {'ok' if ok else 'MISMATCH'}", flush=True)
     return row
 
 

@@ -20,8 +20,8 @@ _ENTRY = {torch.float32: "coded_matmul_f32",
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("coded_matmul"), _ENTRY[dtype])
-    # G, A, X, C, P, n, k, M, K, N, stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # G, A, X, C, P, n, k, M, K, N, splits, stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -29,13 +29,15 @@ def _entry(dtype: torch.dtype):
 def launch(G32: torch.Tensor, A: torch.Tensor, X: torch.Tensor,
            C: torch.Tensor, P: torch.Tensor) -> None:
     """C (n, M, N) <- coded product of G32 (n, k) fp32, A (k, M, K) and
-    X (K, N), using P (k, M, N) fp32 as scratch, on the current stream."""
+    X (K, N), using P (S, k, M, N) fp32 as scratch for S slices of the K
+    range, on the current stream."""
     n, k = G32.shape
     _, M, K = A.shape
     N = X.shape[1]
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = _entry(A.dtype)(G32.data_ptr(), A.data_ptr(), X.data_ptr(),
-                          C.data_ptr(), P.data_ptr(), n, k, M, K, N, stream)
+                          C.data_ptr(), P.data_ptr(), n, k, M, K, N,
+                          P.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"coded_matmul kernel launch failed: CUDA error "
                            f"{err}")

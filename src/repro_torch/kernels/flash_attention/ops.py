@@ -39,6 +39,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16-byte boundaries "
+                         "(the kernel copies 16-byte pieces of each row)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.coding import decode_blocks, encode_blocks, mds_generator
 from repro_torch.kernels.coded_matmul import coded_matmul, coded_matmul_ref
-from repro_torch.kernels.coded_matmul import ops
+from repro_torch.kernels.coded_matmul import kernel, ops
 
 GRID = [(4, 2), (6, 3), (8, 8), (5, 1)]          # tests/test_kernels.py:15
 DTYPES = ["float32", "bfloat16"]
@@ -90,6 +90,70 @@ def test_encode_decode_blocks_match_reference():
 
 
 # --------------------------------------------------------------------------
+# The host half of the N > 8 schedule: how the K range is split
+# --------------------------------------------------------------------------
+
+PAPER_ROWS, PAPER_K = 12288, 8192     # configs/paper_matvec.py
+# (M, K, N) of the card tests below, at (n, k) in RAGGED_NK
+RAGGED = [(100, 37, 1), (129, 255, 130), (64, 64, 8), (33, 1000, 9),
+          (7, 8, 3), (96, 5, 64), (96, 100, 130), (96, 2053, 128)]
+RAGGED_NK = [(12, 1), (12, 12), (12, 4)]
+
+
+def _check_split(rows, K, N, sms=ops.H100_SMS):
+    splits = ops.split_count(rows, K, N, sms)
+    if N <= ops.SKINNY_N:
+        assert splits == 1
+    tiles = -(-rows // ops.BM) * -(-N // ops.BN)
+    most = -(-K // ops.BK)
+    assert 1 <= splits <= most
+    if N > ops.SKINNY_N:
+        # two waves of one block per SM, or every slice one BK deep
+        assert tiles * splits >= 2 * sms or splits == most
+    ranges = ops.split_ranges(K, splits)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1                           # disjoint, no gap
+    for i, (b, e) in enumerate(ranges):
+        assert e > b                              # non-empty
+        assert b % ops.BK == 0
+        if i + 1 < splits:
+            assert (e - b) % ops.BK == 0
+    return splits
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6, 12])
+@pytest.mark.parametrize("N", [1, 128])
+def test_split_count_at_paper_matvec(k, N):
+    """A 12288 x 8192 as k blocks of 12288/k rows: the (k*M) x K source is
+    the same for every k | 12, and so is its split."""
+    splits = _check_split(k * (PAPER_ROWS // k), PAPER_K, N)
+    assert splits == (1 if N == 1 else 4)     # 96 tiles x 4 = 384 blocks
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("nk", RAGGED_NK)
+def test_split_count_on_ragged_shapes(shape, nk):
+    M, K, N = shape
+    _check_split(nk[1] * M, K, N)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 114, 132])
+def test_split_count_adapts_to_the_card(sms):
+    for rows, K, N in [(PAPER_ROWS, PAPER_K, 128), (1548, 255, 130),
+                       (10 ** 6, 64, 256)]:
+        _check_split(rows, K, N, sms)
+
+
+def test_split_ranges_reject_empty_slices():
+    assert ops.split_ranges(37, 3) == [(0, 16), (16, 32), (32, 37)]
+    for bad in (0, 4):
+        with pytest.raises(ValueError, match="splits"):
+            ops.split_ranges(37, bad)
+
+
+# --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------
 
@@ -117,7 +181,7 @@ def test_kernel_matches_plain_version_on_card(cuda, n, k, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(100, 37, 1), (129, 255, 130),
                                    (64, 64, 8), (33, 1000, 9), (7, 8, 3)])
-@pytest.mark.parametrize("nk", [(12, 1), (12, 12), (12, 4)])
+@pytest.mark.parametrize("nk", RAGGED_NK)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_masks_ragged_edges(cuda, shape, nk, dtype):
     """Dims that do not tile, both schedules (N <= 8 and N > 8), the
@@ -141,3 +205,47 @@ def test_kernel_checks_inputs(cuda):
     with pytest.raises(ValueError, match="one device"):
         coded_matmul(G.cpu(), A, X)
     assert ops.coded_matmul is coded_matmul
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [9, 64, 128, 130])
+@pytest.mark.parametrize("K", [5, 16, 100, 1000, 2053])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_k_schedule_matches_plain_version(cuda, N, K, dtype):
+    """The N > 8 schedule: K within one slice (5, 16), K not a multiple of
+    the slice length or of BK (100, 1000, 2053), N ragged and aligned."""
+    G, A, X = _port(_inputs(12, 4, 96, K, N, seed=K + N), dtype, cuda)
+    out = coded_matmul(G, A, X)
+    torch.cuda.synchronize()
+    _assert_close(out, coded_matmul_ref(G, A, X), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6, 12])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_k_schedule_every_k(cuda, k, dtype):
+    """Every k | 12 at n = 12: the same (k*M) x K source cut into k blocks."""
+    G, A, X = _port(_inputs(12, k, 1200 // k, 1000, 128, seed=k), dtype,
+                    cuda)
+    out = coded_matmul(G, A, X)
+    torch.cuda.synchronize()
+    _assert_close(out, coded_matmul_ref(G, A, X), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_split_count_gives_the_same_product(cuda, dtype):
+    """The binding launched with S slices, from one to one per BK: each
+    gives the plain version's product (encode_partials sums the slices)."""
+    G, A, X = _port(_inputs(6, 3, 100, 300, 130, seed=9), dtype, cuda)
+    ref = coded_matmul_ref(G, A, X)
+    for splits in (1, 2, 3, 7, 19):
+        C = torch.empty_like(ref)
+        P = torch.empty((splits, 3, 100, 130), dtype=torch.float32,
+                        device=cuda)
+        kernel.launch(G.float().contiguous(), A, X, C, P)
+        torch.cuda.synchronize()
+        _assert_close(C, ref, TOL[dtype])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel.launch(G.float().contiguous(), A, X, torch.empty_like(ref),
+                      torch.empty((20, 3, 100, 130), device=cuda))

@@ -140,6 +140,100 @@ def test_checks_reject_what_the_kernel_does_not_take():
         ops._check(q.transpose(1, 2), k, v, False)
 
 
+def test_checks_reject_unaligned_bf16():
+    """The bf16 kernel copies 16-byte pieces of each row."""
+    q, k, v = _port(_inputs(1, 8, 8, 4, 2, 16, seed=4), "bfloat16")
+    ops._check(q, k, v, True)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+    shifted = shifted.view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check(shifted, k, v, True)
+
+
+# --------------------------------------------------------------------------
+# The numerics of the card's bf16 schedule, emulated on the CPU
+# --------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+BKV = 64        # keys per K/V tile (csrc/flash_attention.cu, wg::BKV)
+
+
+def _emulate_bf16_schedule(q, k, v, causal, split_p=True):
+    """What ``flash_fwd_wgmma`` computes, in PyTorch on the CPU: fp32
+    scores of the bf16 inputs, scaled after the product; an online softmax
+    over tiles of BKV keys with exp2 and log2(e) folded into the scale; P
+    rounded to bf16 before P V, as hi + lo parts (``split_p``) or hi alone;
+    l summed from the unrounded p; o = acc / max(l, 1e-30) rounded once."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    head = torch.arange(h) // (h // kv)
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    c = scale * LOG2E
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()[:, :, head])
+    if causal:
+        qpos = (sk - sq) + torch.arange(sq)
+        s = torch.where(qpos[:, None] >= torch.arange(sk)[None, :], s,
+                        torch.tensor(-1e30))
+    vv = v.float()[:, :, head].permute(0, 2, 1, 3)      # (B, H, Sk, D)
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, BKV):
+        st = s[..., k0:k0 + BKV]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * c)
+        p = torch.exp2(st * c - m_new * c)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vv[:, :, k0:k0 + BKV]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vv[:, :, k0:k0 + BKV]
+        acc = acc * corr + pv
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _excess(out, ref, atol, rtol):
+    """max |out - ref| / (atol + rtol |ref|): at most 1 within tolerance."""
+    out, ref = out.float(), ref.float()
+    return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_bf16_schedule_numerics_within_card_tolerance(D):
+    """The card's bf16 numerics against the plain version, at the card's
+    own tolerance: (B1, S512, H4, KV2, D128), and D 16/32/64 at S 512."""
+    q, k, v = _port(_inputs(1, 512, 512, 4, 2, D, seed=D), "bfloat16")
+    for causal in (True, False):
+        out = _emulate_bf16_schedule(q, k, v, causal)
+        assert out.dtype == torch.bfloat16
+        assert _excess(out, attention_ref(q, k, v, causal),
+                       *CARD_TOL_BF16) <= 1
+
+
+def test_bf16_schedule_numerics_on_ragged_and_offset_rows():
+    for Sq, Sk, causal in [(200, 200, True), (65, 130, True), (5, 70, True),
+                           (129, 129, False)]:
+        q, k, v = _port(_inputs(2, Sq, Sk, 4, 2, 64, seed=Sq), "bfloat16")
+        out = _emulate_bf16_schedule(q, k, v, causal)
+        assert _excess(out, attention_ref(q, k, v, causal),
+                       *CARD_TOL_BF16) <= 1
+
+
+def test_one_bf16_p_would_break_the_card_tolerance():
+    """Why P goes to the tensor cores as hi + lo: rounded once to bf16,
+    each weight carries 2^-9 of itself into o, which early causal rows
+    (few keys, no averaging) cannot absorb under 1e-3 abs + 1e-2 rel."""
+    q, k, v = _port(_inputs(1, 512, 512, 4, 2, 128, seed=128), "bfloat16")
+    ref = attention_ref(q, k, v, True)
+    one = _emulate_bf16_schedule(q, k, v, True, split_p=False)
+    two = _emulate_bf16_schedule(q, k, v, True)
+    assert _excess(one, ref, *CARD_TOL_BF16) > 1
+    assert _excess(two, ref, *CARD_TOL_BF16) <= 0.7
+
+
 # --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------
@@ -210,3 +304,41 @@ def test_card_tensors_never_reach_the_plain_version(cuda, monkeypatch):
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert out.device.type == "cuda"
+
+
+def _bf16_on_card(cuda, B, Sq, Sk, H, KV, D, causal, seed):
+    q, k, v = _port(_inputs(B, Sq, Sk, H, KV, D, seed=seed), "bfloat16", cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _assert_close(out, attention_ref(q, k, v, causal), *CARD_TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq", [1, 5, 63, 64, 65, 127, 128, 129, 200, 300])
+def test_wgmma_schedule_matches_plain_version(cuda, D, causal, Sq):
+    """Every head dim, both masks, q tiles (128 rows) and K/V tiles (64
+    keys) cut at every edge."""
+    _bf16_on_card(cuda, 2, Sq, Sq, 4, 2, D, causal, seed=Sq + D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk", [(1, 64), (5, 70), (63, 200), (65, 129),
+                                   (128, 300), (129, 130)])
+def test_wgmma_schedule_causal_offsets(cuda, D, Sq, Sk):
+    """Causal rows at key positions Sk - Sq + i, Sk > Sq."""
+    _bf16_on_card(cuda, 2, Sq, Sk, 4, 2, D, True, seed=Sq * Sk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV", [(8, 8), (8, 4), (16, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_schedule_gqa(cuda, H, KV, causal, D):
+    """GQA ratios H/KV of 1, 2 and 8: KV head h // (H/KV) read in place."""
+    _bf16_on_card(cuda, 2, 200, 200, H, KV, D, causal, seed=H * KV)
