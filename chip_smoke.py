@@ -23,9 +23,12 @@ Phases, none of whose failures is caught (any fault exits non-zero):
      S 4096 in bf16), against ``F.scaled_dot_product_attention``; at the
      B 2 x S 4096 shape two planted faults must fail the tolerance;
    - ``ssd_scan`` on the reference grid (2,64,3,16,8) and (1,128,2,32,16)
-     x chunk {4, 16, 64} in fp32, and the mamba2-1.3b shapes of phase 5
-     (H 64, P 64, N 128; B 2 x 64 tokens in fp32, B 2 x S 4096 with
-     chunk 256 in bf16).
+     x chunk {4, 16, 64} and the mamba2-1.3b shape of phase 5's fp32 check
+     (H 64, P 64, N 128; B 2 x 64 tokens) in fp32 (the SIMT schedule); the
+     same grid with chunks 8 and 128 and a state width N = 40 in bf16 (the
+     tensor-core schedule); and phase 5's timed shape (B 2 x S 4096, chunk
+     256, bf16), where two planted faults must fail the tolerance and the
+     profiler splits the call's time over its four CUDA kernels.
 4. Coded mat-vec path: for the three scenarios of examples/coded_matvec.py
    at n = 12, plan k*, estimate the k-curve by Monte-Carlo on the card,
    sample the workers' task times on the card, run the coded job at the
@@ -123,8 +126,16 @@ FLASH_DROP_ROWS, FLASH_DROP_TILE = 1024, 64
 # rounded to bf16, 2^-8 of each element).
 SSD_GRID = [(shape, chunk) for shape in [(2, 64, 3, 16, 8), (1, 128, 2, 32, 16)]
             for chunk in (4, 16, 64)] + [((2, 64, 64, 64, 128), 64)]
+# the bf16 schedule on the same grid, with chunks of 8 and 128 and N = 40
+SSD_BF16_GRID = SSD_GRID + [((2, 64, 3, 16, 8), 8), ((1, 128, 2, 32, 16), 8),
+                            ((1, 128, 2, 32, 16), 128), ((1, 128, 3, 32, 40), 8),
+                            ((1, 128, 3, 32, 40), 64), ((1, 128, 3, 32, 40), 128)]
 SSD_MAIN = ((2, 4096, 64, 64, 128), 256)
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# planted faults at the main shape, built from the plain version: the state
+# carried between chunks dropped, and chunk SSD_FAULT_CHUNK's C B^T taken
+# from the chunk before it (what sharing C B^T across chunks could get wrong)
+SSD_FAULT_CHUNK = 5
 # prefill logits against token-by-token decode, fp32 compute
 # (tests/test_models_smoke.py:114)
 PREFILL_TOL = 2e-4
@@ -429,11 +440,67 @@ def ssd_inputs(shape, dtype, gen, model_law: bool):
     return x, dt, A, Bm, Cm
 
 
+def ssd_intra(x, dt, A, Cm, Bm):
+    """The intra-chunk term of one chunk from the given C and B, as the
+    plain version computes it: sum_{s<=t} (C_t . B_s) exp(l_t - l_s) dt_s
+    x_s, in fp32."""
+    lc = torch.cumsum(dt * A, dim=1)
+    q = x.shape[1]
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    decay = torch.where(causal[None, :, :, None],
+                        torch.exp(lc[:, :, None] - lc[:, None]), 0.0)
+    cb = torch.einsum("bqn,bsn->bqs", Cm.float(), Bm.float())
+    return torch.einsum("bqsh,bshp->bqhp", cb[..., None] * decay * dt[:, None],
+                        x.float())
+
+
+def ssd_planted_faults(args, chunk: int, ref, limit: float) -> None:
+    """Show that the tolerance catches a wrong scan at this shape: two
+    faulted outputs, made with the plain version, must read >= 10x it."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    x, dt, A, Bm, Cm = args
+    b, s = x.shape[:2]
+    cut = lambda t: t.reshape(b * (s // chunk), chunk, *t.shape[2:])
+    dropped = ssd_chunked(cut(x), cut(dt), A, cut(Bm), cut(Cm), chunk)[0]
+    c = SSD_FAULT_CHUNK
+    rows, prev = slice(c * chunk, (c + 1) * chunk), slice((c - 1) * chunk, c * chunk)
+    swapped = ref.float()
+    swapped[:, rows] += (ssd_intra(x[:, rows], dt[:, rows], A, Cm[:, prev], Bm[:, prev])
+                         - ssd_intra(x[:, rows], dt[:, rows], A, Cm[:, rows], Bm[:, rows]))
+    for name, out in (("state dropped between chunks", dropped.view(x.shape)),
+                      (f"chunk {c}'s C B^T from chunk {c - 1}", swapped)):
+        e = float((out.float() - ref.float()).abs().max()) / limit
+        print(f"    planted fault, {name}: max |out-ref| / limit = {e:.3g}"
+              f"  {'caught' if e >= 10 else 'MISSED'}", flush=True)
+        assert e >= 10, f"the tolerance misses a planted fault: {name}"
+
+
+def device_split(fn, reps: int) -> dict:
+    """Mean device ms of each CUDA kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls; empty if it sees no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):
+        return key.replace("(anonymous namespace)::", "").removeprefix(
+            "void ").split("(")[0]
+    return {name(e.key): e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
-                model_law: bool = False) -> dict:
+                model_law: bool = False, plant: bool = False) -> dict:
     """ssd_scan against its plain version (the chunked form) on one input,
     then the kernel's and the plain version's times in turns (plain,
-    kernel, kernel, plain).  No single PyTorch call computes the scan."""
+    kernel, kernel, plain).  No single PyTorch call computes the scan.
+    ``plant``: also show that the tolerance catches two planted faults on
+    this input, and split the call's device time over its CUDA kernels."""
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
     args = ssd_inputs(shape, dtype, gen, model_law)
     out = ssd_scan(*args, chunk=chunk)
@@ -445,6 +512,8 @@ def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
     max_abs = float((out.float() - ref.float()).abs().max())
     tol = SSD_TOL[dtype]
     ok = max_abs <= tol * scale
+    if plant:
+        ssd_planted_faults(args, chunk, ref, tol * scale)
     del out, ref
     fns = {"plain": lambda: ssd_chunked(*args, chunk),
            "kernel": lambda: ssd_scan(*args, chunk=chunk)}
@@ -458,16 +527,23 @@ def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
     x, dt, A, Bm, _ = args
     nbytes = (2 * x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
               + 2 * Bm.numel() * Bm.element_size())
-    b_ms, b_by = roofline(nbytes, ops, torch.float32)
+    # the products' operands are x's dtype: bf16 on the tensor cores
+    b_ms, b_by = roofline(nbytes, ops, dtype)
     row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
                plain_ms=t["plain"], library_ms=None, bound_ms=b_ms,
                bound_by=b_by)
     print(f"  ssd B={B} S={S:4d} H={H:2d} P={P:2d} N={N:3d} chunk={chunk:3d} "
           f"{str(dtype)[6:]:8s} max_abs_err={max_abs:.3e} "
-          f"rel={max_abs / scale:.2e} (tol {tol:g} of max|y|) kernel "
-          f"{t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by}; {rate(t['kernel'], nbytes, ops, b_ms, b_by)})"
+          f"rel={max_abs / scale:.2e} (/limit {max_abs / (tol * scale):.3f}; "
+          f"tol {tol:g} of max|y|) kernel {t['kernel']:.4f} ms  plain "
+          f"{t['plain']:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+          f"{rate(t['kernel'], nbytes, ops, b_ms, b_by)})"
           f"  {'ok' if ok else 'MISMATCH'}", flush=True)
+    if plant:
+        split = device_split(fns["kernel"], reps)
+        print(f"    device time of one call by CUDA kernel (profiler, {reps} "
+              f"calls): " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()),
+              flush=True)
     return row
 
 
@@ -486,8 +562,12 @@ def model_kernel_phase(seed: int) -> dict:
     print("ssd_scan:")
     for shape, chunk in SSD_GRID:
         if not ssd_compare(shape, chunk, torch.float32, gen, reps=10)["ok"]:
-            failures.append(("ssd_scan", shape, chunk))
-    ssd = ssd_compare(*SSD_MAIN, torch.bfloat16, gen, reps=5, model_law=True)
+            failures.append(("ssd_scan", shape, chunk, torch.float32))
+    for shape, chunk in SSD_BF16_GRID:
+        if not ssd_compare(shape, chunk, torch.bfloat16, gen, reps=10)["ok"]:
+            failures.append(("ssd_scan", shape, chunk, torch.bfloat16))
+    ssd = ssd_compare(*SSD_MAIN, torch.bfloat16, gen, reps=10, model_law=True,
+                      plant=True)
     if not ssd["ok"]:
         failures.append(("ssd_scan", SSD_MAIN))
     torch.cuda.empty_cache()

@@ -1,10 +1,14 @@
 """Public wrapper for the Mamba2 SSD chunked scan.
 
 A CPU tensor takes the plain version (``ref.ssd_chunked``).  A CUDA tensor
-launches the Hopper kernel (``kernel.py``), after the checks below, or
-raises.  The kernel itself refuses a state or chunk that does not fit one
-block (``csrc/ssd_scan.cu`` ``launch_p``), which ``kernel.launch`` raises
-as a RuntimeError.  ``ssd_scan.launches`` counts the kernel launches.
+launches the Hopper kernels (``kernel.py``), after the checks below, or
+raises: bf16 x, B and C the tensor-core schedule (four CUDA kernels a call,
+with a workspace allocated here), fp32 the SIMT one (one CUDA kernel).  The
+kernels themselves refuse what they do not take (``csrc/ssd_scan.cu``: for
+fp32 a state or chunk that does not fit one block; for bf16 N not a
+multiple of 8, P * N > 8192 or an operand not 16-byte aligned), which
+``kernel.launch`` raises as a RuntimeError.  ``ssd_scan.launches`` counts
+the calls that launched the kernels.
 """
 from __future__ import annotations
 
@@ -67,7 +71,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm, chunk)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        kernel.launch(x, dt, A, Bm, Cm, y, chunk)
+        work = None
+        if x.dtype == torch.bfloat16:
+            work = torch.empty(kernel.workspace_bytes(*x.shape, Bm.shape[-1],
+                                                      chunk),
+                               dtype=torch.uint8, device=x.device)
+        kernel.launch(x, dt, A, Bm, Cm, y, chunk, work)
     ssd_scan.launches += 1
     return y
 

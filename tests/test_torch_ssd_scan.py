@@ -1,7 +1,8 @@
 """The port's SSD scan: its chunked plain version against the JAX package's
 Pallas kernel (interpret mode), the JAX ``ssd_chunked`` (y and the final
-state) and the sequential oracle, and its CUDA kernel against the plain
-version on the card.
+state) and the sequential oracle; the bf16 tensor-core schedule of the CUDA
+kernels emulated on the CPU; and the CUDA kernels against the plain version
+on the card.
 
 The JAX package is imported inside the tests that compare with it, so the
 card's tests (marked ``gpu``) also run on a machine without JAX:
@@ -18,6 +19,12 @@ from repro_torch.kernels.ssd_scan import ops
 CHUNKS = [4, 16, 64]                             # tests/test_kernels.py:65
 SHAPES = [(2, 64, 3, 16, 8), (1, 128, 2, 32, 16)]  # :66
 TOL = 2e-5                                       # of max|y|, :79
+# bf16 x, B and C on the card: 1e-2 of max|y| (y is rounded to bf16), and
+# the bf16 schedule is held to half of it
+CARD_TOL_BF16 = 1e-2
+MAMBA_SHAPE = (1, 512, 4, 64, 128)     # mamba2-1.3b's P and N; B, S, H cut
+GRID_BF16 = [(shape, chunk) for shape in SHAPES for chunk in CHUNKS + [8]] + \
+    [((1, 128, 3, 32, 40), chunk) for chunk in (8, 64, 128)]
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -28,6 +35,18 @@ def _inputs(B, S, H, P, N, seed):
     x = rng.standard_normal((B, S, H, P), dtype=np.float32)
     dt = np.logaddexp(rng.standard_normal((B, S, H)), 0).astype(np.float32)
     A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _mamba_inputs(B, S, H, P, N, seed):
+    """The model's laws: A in [-16, -1) and dt in [1e-3, 1e-1], so lcum falls
+    far below -88 inside a chunk of 256."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = rng.uniform(1e-3, 1e-1, (B, S, H)).astype(np.float32)
+    A = -rng.uniform(1.0, 16.0, H).astype(np.float32)
     Bm = rng.standard_normal((B, S, N), dtype=np.float32)
     Cm = rng.standard_normal((B, S, N), dtype=np.float32)
     return x, dt, A, Bm, Cm
@@ -138,6 +157,117 @@ def test_checks_reject_what_the_kernel_does_not_take():
 
 
 # --------------------------------------------------------------------------
+# The bf16 schedule of csrc/ssd_scan.cu, emulated on the CPU
+# --------------------------------------------------------------------------
+
+def _operand(v, parts):
+    """v as the tensor cores see it: fp32 (parts 0), bf16(v) (1), or
+    bf16(v) + bf16(v - bf16(v)) (2)."""
+    if parts == 0:
+        return v
+    hi = v.bfloat16().float()
+    return hi if parts == 1 else hi + (v - hi).bfloat16().float()
+
+
+def _emulate_bf16_schedule(x, dt, A, Bm, Cm, chunk, parts=None, lag=1):
+    """What the bf16 schedule computes, in its four steps, in fp32:
+
+    1. G = C B^T per chunk (exact products of the bf16 inputs);
+    2. each chunk's own state s_c = (x w)^T B, w_s = exp(l_{Q-1} - l_s) dt_s;
+    3. the states passed in fp32: h_c = h_{c-1} exp(l_{Q-1}) + s_c;
+    4. y_t = exp(l_t) C_t h_{c-lag}^T + sum_{s<=t} W_ts x_s with
+       W = G o exp(l_t - l_s) o dt_s.
+
+    ``parts`` maps each fp32 operand of a product ("W", "h" and "xw") to the
+    bf16 parts it reaches the tensor cores as (``_operand``); None keeps all
+    in fp32, the factorisation alone.  ``lag`` 1 is the schedule; 0 feeds
+    chunk c the state after it, a planted fault.  y in x's dtype."""
+    parts = parts or {}
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    nc = s // chunk
+    xs = x.float().reshape(b, nc, chunk, h, p)
+    Bs = Bm.float().reshape(b, nc, chunk, n)
+    Cs = Cm.float().reshape(b, nc, chunk, n)
+    dts = dt.float().reshape(b, nc, chunk, h)
+    lc = torch.cumsum(dts * A.float(), dim=2)                    # (b,nc,Q,h)
+    G = torch.einsum("bctn,bcsn->bcts", Cs, Bs)                  # step 1
+    w = torch.exp(lc[:, :, -1:] - lc) * dts
+    xw = _operand(xs * w[..., None], parts.get("xw", 0))
+    own = torch.einsum("bcshp,bcsn->bchpn", xw, Bs)              # step 2
+    states, run = [], torch.zeros_like(own[:, 0])
+    for c in range(nc):                                          # step 3
+        after = run * torch.exp(lc[:, c, -1])[..., None, None] + own[:, c]
+        states.append(run if lag else after)
+        run = after
+    hin = _operand(torch.stack(states, 1), parts.get("h", 0))
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    decay = torch.exp(lc[:, :, :, None] - lc[:, :, None])        # (b,nc,t,s,h)
+    W = torch.where(causal[None, None, :, :, None],
+                    G[..., None] * decay * dts[:, :, None], torch.zeros(()))
+    W = _operand(W, parts.get("W", 0))                           # step 4
+    y = torch.einsum("bctsh,bcshp->bcthp", W, xs) + \
+        torch.einsum("bctn,bchpn->bcthp", Cs, hin) * torch.exp(lc)[..., None]
+    return y.reshape(b, s, h, p).to(x.dtype)
+
+
+SPLIT_ALL = {"W": 2, "h": 2, "xw": 2}
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_factorisation_matches_ssd_chunked(chunk, shape):
+    """The four steps alone, in fp32, equal the chunked form to 2e-5; fed
+    the state after each chunk instead of the one before it, they do not."""
+    args = _port(_inputs(*shape, seed=300 + chunk + shape[1]))
+    ref = ssd_chunked(*args, chunk)[0]
+    _assert_close(_emulate_bf16_schedule(*args, chunk), ref, TOL)
+    off = _emulate_bf16_schedule(*args, chunk, lag=0)
+    scale = float(ref.abs().max())
+    assert float((off - ref).abs().max()) > 100 * TOL * scale
+
+
+@pytest.mark.parametrize("shape,chunk", GRID_BF16 + [(MAMBA_SHAPE, 256)])
+def test_bf16_schedule_within_half_the_card_tolerance(shape, chunk):
+    """The schedule as the card runs it (bf16 x, B, C; W, h and x w as hi +
+    lo) reads at most half the card's limit against the plain version and
+    the JAX oracle, on the reference grid and at the mamba2 laws."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssd_scan import ssd_ref as jax_ssd_ref
+    mamba = shape == MAMBA_SHAPE
+    arrays = (_mamba_inputs if mamba else _inputs)(*shape, seed=chunk + 7)
+    args = _port(arrays, "bfloat16")
+    out = _emulate_bf16_schedule(*args, chunk, SPLIT_ALL)
+    assert out.dtype == torch.bfloat16
+    limit = 0.5 * CARD_TOL_BF16
+    _assert_close(out, ssd_chunked(*args, chunk)[0], limit)
+    exact = [np.asarray(a.float()) for a in args]    # the bf16 values, fp32
+    _assert_close(out, np.asarray(jax_ssd_ref(*map(jnp.asarray, exact))[0]),
+                  limit)
+
+
+@pytest.mark.parametrize("parts", [{"W": 2, "h": 1, "xw": 1},
+                                   {"W": 2, "h": 2, "xw": 1},
+                                   {"W": 2, "h": 1, "xw": 2}])
+def test_fewer_bf16_splits_would_read_over_half_the_limit(parts):
+    """Why all three fp32 operands go to the tensor cores as hi + lo: with
+    any of h and x w rounded once, a reference-grid input reads more than
+    half the limit, where the full split reads under a third of it."""
+    shape, chunk = (1, 128, 3, 32, 40), 8
+    seed = 5136 if parts["xw"] == 2 else 4136
+    args = _port(_inputs(*shape, seed=seed), "bfloat16")
+    ref = ssd_chunked(*args, chunk)[0].float()
+    scale = float(ref.abs().max())
+
+    def reads(p):
+        out = _emulate_bf16_schedule(*args, chunk, p).float()
+        return float((out - ref).abs().max()) / (CARD_TOL_BF16 * scale)
+
+    assert reads(parts) > 0.5
+    assert reads(SPLIT_ALL) < 1 / 3
+
+
+# --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------
 
@@ -165,21 +295,30 @@ def test_kernel_matches_plain_version_on_card(cuda, chunk, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,chunk", GRID_BF16 + [((2, 256, 4, 64, 128), 128),
+                                                     ((1, 96, 2, 16, 8), 96),
+                                                     ((1, 120, 2, 32, 16), 40)])
+def test_bf16_schedule_matches_plain_version_on_card(cuda, shape, chunk):
+    """The tensor-core schedule at every head dim, ragged chunks (4, 8, 40,
+    96) and state widths (8, 40), within half the card's limit."""
+    args = _port(_inputs(*shape, seed=chunk + shape[1]), "bfloat16", cuda)
+    before = ssd_scan.launches
+    out = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert out.shape == shape[:4] and out.dtype == torch.bfloat16
+    _assert_close(out, ssd_chunked(*args, chunk)[0], 0.5 * CARD_TOL_BF16)
+
+
+@pytest.mark.gpu
 def test_kernel_matches_plain_version_on_card_bf16_mamba_law(cuda):
     """bf16 x, B, C at the model's own laws: A in [-16, -1) and dt in
     [1e-3, 1e-1], so lcum falls far below -88 inside a chunk of 256."""
-    B, S, H, P, N = 1, 512, 4, 64, 128
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
-    dt = rng.uniform(1e-3, 1e-1, (B, S, H)).astype(np.float32)
-    A = -rng.uniform(1.0, 16.0, H).astype(np.float32)
-    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
-    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
-    args = _port((x, dt, A, Bm, Cm), "bfloat16", cuda)
+    args = _port(_mamba_inputs(*MAMBA_SHAPE, seed=11), "bfloat16", cuda)
     out = ssd_scan(*args, chunk=256)
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    _assert_close(out, ssd_chunked(*args, 256)[0], 1e-2)
+    _assert_close(out, ssd_chunked(*args, 256)[0], CARD_TOL_BF16)
 
 
 @pytest.mark.gpu
@@ -198,13 +337,27 @@ def test_kernel_checks_inputs(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_state_that_does_not_fit_one_block(cuda):
-    """P x N = 16 x 512 needs more shared memory than a block has: the
-    kernel reports it, the wrapper raises and counts no launch."""
+    """What the kernels refuse, reported by them: the wrapper raises and
+    counts no launch.  fp32: P x N = 16 x 512 needs more shared memory than
+    a block has.  bf16: a state of P x N = 16 x 1024 > 8192 entries, N not a
+    multiple of 8, and an operand off a 16-byte boundary."""
     x, dt, A, _, _ = _port(_inputs(1, 32, 2, 16, 8, seed=7), "float32", cuda)
     big = torch.zeros((1, 32, 512), device=cuda)
+    x16 = x.bfloat16()
     before = ssd_scan.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         ssd_scan(x, dt, A, big, big, chunk=16)
+    wide = torch.zeros((1, 32, 1024), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(x16, dt, A, wide, wide, chunk=16)
+    odd = torch.zeros((1, 32, 12), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(x16, dt, A, odd, odd, chunk=16)
+    shifted = torch.zeros(x16.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(x16.shape)
+    narrow = torch.zeros((1, 32, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(shifted, dt, A, narrow, narrow, chunk=16)
     assert ssd_scan.launches == before
 
 
