@@ -46,7 +46,24 @@ Phases, none of whose failures is caught (any fault exits non-zero):
    and one more decode step run under ``torch.profiler`` for the device
    operations, device time by kernel group and the device's idle share.  The kernel's launch count is zeroed
    before each forward and read after it: one launch per layer.
-6. One JSON line listing every kernel with its launches and times; the
+6. Load-aware queueing path (no kernel of this repo lies on it: the lane
+   engine is PyTorch operations in one loop over jobs), all on the card:
+   - the ``benchmarks/cluster_sweep.py`` gate shape: S-Exp(1, 5)
+     server-dependent, n = 120, all 16 legal k, loads lambda_max x {0.2,
+     ..., 0.95}, 600 jobs, warmup 60, one replication; cells/s, ms per job
+     step, device operations per job step, device-busy ms and idle share
+     (``torch.profiler``), and the oracle's cells/s on three cells spread
+     over k and load beside it;
+   - the card against the host on one mid cell's injected numpy draws
+     (k 12, load 0.5 lambda_max), plain, under crash-restart failures and
+     grouped (g 2): equal latencies, utilization and wasted fraction within
+     1e-5 relative, and the float64 oracle on the same arrays within the
+     reference's tolerances;
+   - ``examples/load_sweep.py``'s three k* x load surfaces at its size
+     (Poisson, MMPP under p99, a fleet with two 3x-slow workers) beside the
+     single-job k*;
+   - ``Planner.co_plan`` at ``examples/assignment.py``'s candidates.
+7. One JSON line listing every kernel with its launches and times; the
    last line is the device record.
 """
 from __future__ import annotations
@@ -140,6 +157,23 @@ SSD_FAULT_CHUNK = 5
 # (tests/test_models_smoke.py:114)
 PREFILL_TOL = 2e-4
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-1.3b")
+# phase 6: the gate shape of benchmarks/cluster_sweep.py
+QUEUE_N, QUEUE_JOBS, QUEUE_WARMUP = 120, 600, 60
+QUEUE_FRACS = (0.2, 0.35, 0.5, 0.65, 0.8, 0.95)
+# the card against the host: one mid cell, and a numpy crash-restart
+# schedule (mean up time, mean down time, events per worker) that spans
+# the cell's ~9e5 time units
+QUEUE_MID_K, QUEUE_MID_FRAC = 12, 0.5
+QUEUE_FAILURES = (5e4, 5e3, 64)
+# the oracle's tolerances (tests/test_cluster_batched.py:55-72): latencies
+# rtol 1e-3 + atol 2e-2, utilization and wasted fraction 2e-3 absolute.
+# The lanes keep absolute times in float32 as the reference's engine does
+# (ROADMAP Queue 3); at this cell the clock reaches ~9e5, where a float32
+# step is 0.0625, so each latency also gets two steps of the clock at the
+# latest arrival (host runs of four seeds: at most 0.92 of one step).
+QUEUE_RTOL, QUEUE_ATOL, QUEUE_RATE_TOL, QUEUE_CLOCK_ULPS = 1e-3, 2e-2, 2e-3, 2
+# examples/load_sweep.py at its own size
+LOAD_SWEEP_LOADS = (0.01, 0.06, 0.12, 0.20)
 
 
 def phase(name: str) -> None:
@@ -653,10 +687,11 @@ def main_path_phase(cfg, seed: int) -> dict:
     return launches
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn):
     """One more call of ``fn`` under ``torch.profiler``: the device
     operations it launched, device time by kernel group and the device's
-    idle share of the call's span."""
+    idle share of the call's span.  Returns (device operations, busy ms,
+    span ms), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
@@ -673,7 +708,7 @@ def profile_call(label: str, fn) -> None:
     if not kernels:
         print(f"  profiled {label}: span {span_ms:.2f} ms; the profiler saw "
               f"no device time: breakdown not measured")
-        return
+        return None
     groups = {}
     for e in kernels:
         low = e.key.lower()
@@ -698,6 +733,7 @@ def profile_call(label: str, fn) -> None:
     for e in top:
         print(f"    top: {e.self_device_time_total / 1e3:9.3f} ms x{e.count:4d} "
               f"{e.key[:90]}")
+    return sum(e.count for e in kernels), busy_ms, span_ms
 
 
 def serving_phase(seed: int) -> dict:
@@ -813,6 +849,184 @@ def serving_phase(seed: int) -> dict:
     return launches
 
 
+def queueing_phase(seed: int) -> None:
+    """Phase 6: the load-aware queueing path on the card.  Any miss
+    raises."""
+    import numpy as np
+    from repro_torch.api import (AllWorkers, LoadAwareLatency, MMPPArrivals,
+                                 Planner, RandomGroups, ReplicationGroups,
+                                 RoundRobin, Scenario, SpeedAware)
+    from repro_torch.core.distributions import BiModal, Scaling, ShiftedExp
+    from repro_torch.core.policy import RetryPolicy
+    from repro_torch.runtime.cluster import ClusterConfig, simulate
+    from repro_torch.runtime.cluster_batched import sweep
+    phase("6. load-aware queueing path")
+    t_phase = time.perf_counter()
+
+    # -- the cluster_sweep gate shape ---------------------------------------
+    dist, scaling = ShiftedExp(1.0, 5.0), Scaling.SERVER_DEPENDENT
+    sc = Scenario(dist, scaling, QUEUE_N)
+    ks = sc.legal_ks()
+    lam_max = 1.0 / (dist.mean() * QUEUE_N)
+    loads = [lam_max * f for f in QUEUE_FRACS]
+    cells = len(ks) * len(loads)
+
+    def surface(s):
+        return sweep(sc, loads, num_jobs=QUEUE_JOBS, seed=s,
+                     warmup=QUEUE_WARMUP, device="cuda")
+
+    t0 = time.perf_counter()
+    surface(1)
+    first_s = time.perf_counter() - t0
+    warm = []
+    for s in (2, 3):
+        t0 = time.perf_counter()
+        sw = surface(s)
+        warm.append(time.perf_counter() - t0)
+    assert sw.mean.shape == (len(loads), len(ks)), sw.mean.shape
+    for m in ("mean", "p99", "utilization", "wasted_frac", "throughput"):
+        assert np.isfinite(sw.metric(m)).all(), m
+    kstar = sw.kstar()
+    assert all(QUEUE_N % k == 0 for k in kstar.values()), kstar
+    batched_s = min(warm)
+    cps = cells / batched_s
+    print(f"  gate shape: S-Exp(1, 5) server-dependent, n {QUEUE_N}, "
+          f"{len(ks)} k x {len(loads)} loads = {cells} cells, "
+          f"{QUEUE_JOBS} jobs, warmup {QUEUE_WARMUP}, 1 rep "
+          f"({len(ks) * len(loads)} lanes)")
+    print(f"  sweep (host clock, results on the host): first call "
+          f"{first_s:.3f} s, warm {warm[0]:.3f} / {warm[1]:.3f} s = "
+          f"{cps:.1f} cells/s, {batched_s / QUEUE_JOBS * 1e3:.4f} ms per job "
+          f"step", flush=True)
+    print(f"  k* by load (x lambda_max): "
+          + ", ".join(f"{f}: {kstar[float(lam)]}"
+                      for f, lam in zip(QUEUE_FRACS, loads)))
+    stats = profile_call("sweep (seed 2)", lambda: surface(2))
+    if stats is not None:
+        ops, busy_ms, span_ms = stats
+        print(f"  {ops / QUEUE_JOBS:.1f} device operations per job step; "
+              f"device busy {busy_ms:.3f} ms of {span_ms:.3f} ms, idle "
+              f"{1 - busy_ms / span_ms:.1%}")
+    oracle_cells = [(ks[0], loads[0]), (ks[len(ks) // 2], loads[2]),
+                    (ks[-1], loads[-1])]
+    t0 = time.perf_counter()
+    oracle = {cell: simulate(
+        ClusterConfig(QUEUE_N, cell[0], cell[1], num_jobs=QUEUE_JOBS, seed=1,
+                      warmup=QUEUE_WARMUP), dist, scaling, backend="oracle",
+        device="cuda") for cell in oracle_cells}
+    oracle_s = time.perf_counter() - t0
+    ocps = len(oracle_cells) / oracle_s
+    print(f"  oracle on {len(oracle_cells)} cells (k, x lambda_max) "
+          f"{[(k, round(lam / lam_max, 2)) for k, lam in oracle_cells]}: "
+          f"{oracle_s:.3f} s = {ocps:.2f} cells/s; batched / oracle "
+          f"{cps / ocps:.1f}x (the JAX package gates >= 20x on its own "
+          f"machine; printed, not checked)")
+    k_mid, lam_mid = oracle_cells[1]
+    om = oracle[oracle_cells[1]].summary()["mean"]
+    bm = sw.summary(2, ks.index(k_mid))["mean"]
+    print(f"  mid cell (k {k_mid}, 0.5 lambda_max) mean latency: batched "
+          f"{bm:.3f}, oracle {om:.3f} (benchmarks/cluster_sweep.py's guard: "
+          f"within 15 %)", flush=True)
+    assert abs(bm - om) / om < 0.15, (bm, om)
+
+    # -- the card against the host on injected draws ------------------------
+    rng = np.random.default_rng(seed)
+    n, k, lam = QUEUE_N, QUEUE_MID_K, lam_max * QUEUE_MID_FRAC
+    svc = dist.shift + (n // k) * rng.exponential(dist.W, (QUEUE_JOBS, n))
+    arr = np.cumsum(rng.exponential(1.0 / lam, QUEUE_JOBS))
+    mttf, mttr, events = QUEUE_FAILURES
+    up = rng.exponential(mttf, (n, events))
+    down = rng.exponential(mttr, (n, events))
+    crash = np.cumsum(up + np.pad(down[:, :-1], ((0, 0), (1, 0))), axis=1)
+    step = float(np.spacing(np.float32(arr.max())))
+    print(f"  injected draws (numpy, seed {seed}): k {k}, load "
+          f"{QUEUE_MID_FRAC} lambda_max, clock up to {arr.max():.0f} "
+          f"(float32 step {step:g})")
+    retry = RetryPolicy(max_attempts=3, backoff_base=0.5, backoff_mult=2.0)
+    for cell, extra, kw in (
+            ("plain", {}, {}),
+            ("failure", dict(retry=retry),
+             dict(crash_times=crash, recovery_times=crash + down)),
+            ("grouped g=2", dict(assignment=ReplicationGroups(g=2)), {})):
+        cfg = ClusterConfig(n, k, lam, num_jobs=QUEUE_JOBS, **extra)
+        card, host, des = (simulate(
+            cfg, dist, scaling, backend=backend, service_times=svc,
+            arrival_times=arr, device=dev, **kw)
+            for backend, dev in (("batched", "cuda"), ("batched", "cpu"),
+                                 ("oracle", "cuda")))
+        equal = np.array_equal(card.latencies, host.latencies)
+        rel = [abs(a - b) / abs(b) if b else abs(a)
+               for a, b in ((card.utilization, host.utilization),
+                            (card.wasted_frac, host.wasted_frac))]
+        diff = np.abs(card.latencies - des.latencies)
+        ref_tol = QUEUE_ATOL + QUEUE_RTOL * np.abs(des.latencies)
+        within = bool((diff <= ref_tol + QUEUE_CLOCK_ULPS * step).all())
+        rates = max(abs(card.utilization - des.utilization),
+                    abs(card.wasted_frac - des.wasted_frac))
+        masks = card.job_failed is None or (
+            np.array_equal(card.job_failed, host.job_failed)
+            and np.array_equal(card.job_failed, des.job_failed))
+        ok = equal and max(rel) <= 1e-5 and within and \
+            rates < QUEUE_RATE_TOL and masks
+        print(f"  {cell:12s} card = host latencies {equal}, utilization / "
+              f"wasted rel diff {rel[0]:.1e} / {rel[1]:.1e}; against the "
+              f"oracle max|diff| {diff.max():.4f} ({diff.max() / step:.2f} "
+              f"clock steps), {int((diff > ref_tol).sum())} of "
+              f"{diff.size} outside 2e-2 + 1e-3|lat| alone, rates "
+              f"{rates:.1e}; failed jobs "
+              f"{0 if card.job_failed is None else int(card.job_failed.sum())}"
+              f"  {'ok' if ok else 'MISMATCH'}", flush=True)
+        assert ok, cell
+
+    # -- examples/load_sweep.py's three surfaces ----------------------------
+    planner = Planner()
+    sc = Scenario(BiModal(10.0, 0.3), Scaling.ADDITIVE, 12)
+    single = planner.plan(sc).k
+    law = LoadAwareLatency(num_jobs=2000, reps=4, seed=0)
+    burst = MMPPArrivals(rate=1.0, slow=0.2, burst=5.0, switch=0.02)
+    for label, scen, obj in (
+            ("Poisson, mean", sc, law),
+            ("MMPP burst, p99",
+             Scenario(BiModal(10.0, 0.3), Scaling.ADDITIVE, 12,
+                      arrivals=burst),
+             LoadAwareLatency(num_jobs=2000, reps=4, seed=0, metric="p99")),
+            ("speeds (1,)*10+(3,3), mean",
+             Scenario(BiModal(10.0, 0.3), Scaling.ADDITIVE, 12,
+                      worker_speeds=(1,) * 10 + (3.0, 3.0)), law)):
+        t0 = time.perf_counter()
+        kmap = planner.kstar_vs_load(scen, list(LOAD_SWEEP_LOADS), obj)
+        dt = time.perf_counter() - t0
+        assert set(kmap) == set(LOAD_SWEEP_LOADS), kmap
+        assert all(12 % v == 0 for v in kmap.values()), kmap
+        print(f"  load_sweep {label:27s}: k* {kmap} (single-job k* "
+              f"{single} beside load {LOAD_SWEEP_LOADS[0]}); 2000 jobs x 4 "
+              f"reps x {len(LOAD_SWEEP_LOADS)} loads x 6 k in {dt:.3f} s",
+              flush=True)
+
+    # -- Planner.co_plan at examples/assignment.py's candidates -------------
+    cdist = ShiftedExp(1.0, 1.25)
+    csc = Scenario(cdist, Scaling.SERVER_DEPENDENT, 12,
+                   worker_speeds=(3.0,) * 4 + (1.0,) * 8)
+    clam = 1.0 / (cdist.mean() * 12)
+    candidates = [AllWorkers(), RoundRobin(), RandomGroups(), SpeedAware()]
+    t0 = time.perf_counter()
+    plan = Planner(LoadAwareLatency(num_jobs=1200, reps=2, preempt=False,
+                                    seed=0)).co_plan(
+        csc, candidates, objective=LoadAwareLatency(
+            arrival_rate=0.5 * clam, num_jobs=1200, reps=2, preempt=False,
+            seed=0))
+    dt = time.perf_counter() - t0
+    assert plan.k in csc.legal_ks() and np.isfinite(plan.expected_time)
+    assert all(np.isfinite(v) for v in plan.curve.values()), plan.curve
+    print(f"  co_plan: k* {plan.k}, placement {plan.assignment}, mean "
+          f"{plan.expected_time:.3f}; {len(candidates)} placements x "
+          f"{len(csc.legal_ks())} k x 1200 jobs x 2 reps in {dt:.3f} s")
+    print("  envelope: " + ", ".join(f"k={kk}: {v:.2f}"
+                                     for kk, v in sorted(plan.curve.items())))
+    print(f"  phase 6 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -825,8 +1039,9 @@ def main() -> None:
     model_rows = model_kernel_phase(args.seed)
     launches = main_path_phase(CONFIG, args.seed)
     serve_launches = serving_phase(args.seed)
+    queueing_phase(args.seed)
 
-    phase("6. kernels")
+    phase("7. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]

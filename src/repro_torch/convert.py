@@ -7,10 +7,14 @@ imports ``repro``:
   * a dataclass instance is matched by its class name (``ShiftedExp``,
     ``Pareto``, ``BiModal``, ``Scenario``, ``Policy``, ``RetryPolicy``,
     ``Plan``, ``FailureModel``, ``PoissonArrivals``,
-    ``DeterministicArrivals``, ``MMPPArrivals``);
+    ``DeterministicArrivals``, ``MMPPArrivals`` and the placements
+    ``AllWorkers``, ``ReplicationGroups``, ``RoundRobin``,
+    ``RandomGroups``, ``SpeedAware``);
   * a ``dataclasses.asdict`` dictionary is matched by its set of keys.
     Poisson and deterministic arrivals share their one field, so their
-    dictionaries are ambiguous and raise: pass the object instead;
+    dictionaries are ambiguous and raise: pass the object instead.  The
+    placements' dictionaries are not recognised (several share their
+    keys): pass the object;
   * an enum whose value names a ``Scaling`` becomes that ``Scaling``;
   * anything with ``__array__`` (numpy arrays, the reference's device
     arrays) becomes a tensor on ``device``; bfloat16 arrays stay bfloat16;
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from ._device import DEFAULT_DEVICE, resolve
+from .assign.strategies import (AllWorkers, RandomGroups, ReplicationGroups,
+                                RoundRobin, SpeedAware)
 from .core.distributions import BiModal, Pareto, Scaling, ShiftedExp
 from .core.planner import Plan
 from .core.policy import Policy, RetryPolicy
@@ -42,7 +48,9 @@ __all__ = ["params_to_port", "to_port"]
 _RECORDS = (ShiftedExp, Pareto, BiModal, Scenario, Policy, RetryPolicy, Plan,
             FailureModel, PoissonArrivals, DeterministicArrivals,
             MMPPArrivals)
-_BY_NAME = {cls.__name__: cls for cls in _RECORDS}
+_PLACEMENTS = (AllWorkers, ReplicationGroups, RoundRobin, RandomGroups,
+               SpeedAware)
+_BY_NAME = {cls.__name__: cls for cls in _RECORDS + _PLACEMENTS}
 _BY_KEYS = {frozenset(f.name for f in dataclasses.fields(cls)): cls
             for cls in _RECORDS
             if cls not in (PoissonArrivals, DeterministicArrivals)}

@@ -59,9 +59,10 @@ class Plan:
     curve: dict                 # k -> E[Y_{k:n}] for all divisors
     theorem_k: Optional[float]  # closed-form k* where the paper gives one
     theorem_name: Optional[str]
-    #: co-optimized task placement (None = all-workers fan-out), carried
-    #: opaquely.  Excluded from the decision identity like Policy's field.
-    assignment: Optional[object] = dataclasses.field(
+    #: co-optimized task placement (None = all-workers fan-out; see
+    #: ``api.Planner.co_plan``).  Excluded from the decision identity like
+    #: Policy's field.
+    assignment: Optional["Assignment"] = dataclasses.field(
         default=None, compare=False)
 
     @property

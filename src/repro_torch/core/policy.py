@@ -124,10 +124,8 @@ class Policy:
     retry: Optional[RetryPolicy] = dataclasses.field(
         default=None, compare=False)
     #: task-to-worker placement; None = all-workers fan-out (the paper's
-    #: dispatch and the backward-compatible engine default).  Carried
-    #: opaquely: the placement types are not part of this package yet, so
-    #: nothing here validates it.
-    assignment: Optional[object] = dataclasses.field(
+    #: dispatch and the backward-compatible engine default)
+    assignment: Optional["Assignment"] = dataclasses.field(
         default=None, compare=False)
 
     def __post_init__(self):
@@ -141,12 +139,18 @@ class Policy:
         if self.retry is not None and not isinstance(self.retry, RetryPolicy):
             raise TypeError(
                 f"retry must be a RetryPolicy, got {self.retry!r}")
+        if self.assignment is not None:
+            from ..assign.strategies import Assignment
+            if not isinstance(self.assignment, Assignment):
+                raise TypeError(f"assignment must be an Assignment "
+                                f"strategy, got {self.assignment!r}")
+            self.assignment.validate(self.n, self.k)
 
     def with_retry(self, retry: Optional[RetryPolicy]) -> "Policy":
         """The same [n, k] decision under a different relaunch schedule."""
         return dataclasses.replace(self, retry=retry)
 
-    def with_assignment(self, assignment: Optional[object]) -> "Policy":
+    def with_assignment(self, assignment: Optional["Assignment"]) -> "Policy":
         """The same [n, k] decision under a different task placement."""
         return dataclasses.replace(self, assignment=assignment)
 

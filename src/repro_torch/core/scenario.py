@@ -13,19 +13,33 @@ of s CUs under every (distribution x scaling) pair — shared by the
 quantile objective (``api``) and the FR-coded runtime
 (``runtime.straggler``).
 
-The arrival-process and failure-model types are here with their fields
-and validation, so that ``Scenario`` checks what it is given; their
-samplers belong to the queueing engines.
+This module is also the shared SAMPLING substrate of the two cluster
+backends (``runtime.cluster_oracle``, ``runtime.cluster_batched``):
+
+  * ``ArrivalProcess`` and its concrete families (``PoissonArrivals``,
+    ``DeterministicArrivals``, ``MMPPArrivals``) are frozen, hashable
+    dataclasses whose ``times(generator, num_jobs, rate)`` draws the
+    arrival instants on the generator's device; ``rate`` may be a tensor
+    of load lanes, so the batched engine sweeps the rate over one draw.
+  * ``FailureModel.schedule`` draws the per-worker crash/recovery
+    instants, and ``sample_task_matrix`` the (num_jobs, n) per-job/
+    per-worker task-time matrix, applying per-worker speed factors —
+    heterogeneous machines — multiplicatively.  The oracle and the
+    batched engine's single-cell path consume the same matrix for a
+    given generator seed, which is what makes exact sample-path parity
+    possible.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from .._device import DEFAULT_DEVICE, generator, resolve
+from .._device import DEFAULT_DEVICE, generator, resolve, target
 from .batched import divisors
 from .distributions import BiModal, Scaling, ServiceTime, ShiftedExp
 from .policy import Policy, RetryPolicy  # noqa: F401  (re-export)
@@ -33,7 +47,8 @@ from .policy import Policy, RetryPolicy  # noqa: F401  (re-export)
 __all__ = [
     "ArrivalProcess", "FailureModel", "PoissonArrivals",
     "DeterministicArrivals", "MMPPArrivals", "RetryPolicy", "Scenario",
-    "task_survival", "validate_worker_speeds",
+    "arrival_gap", "sample_task_matrix", "task_survival",
+    "validate_worker_speeds",
 ]
 
 
@@ -45,8 +60,9 @@ __all__ = [
 class ArrivalProcess:
     """A stationary arrival process with mean rate ``rate`` (jobs/time).
 
-    One process object describes the SHAPE of the workload; a load sweep
-    rescales its intensity.
+    Subclasses implement ``times``; ``rate`` may be overridden per call
+    so one process object describes the SHAPE of the workload while a
+    load sweep scales its intensity.
     """
 
     rate: float
@@ -55,15 +71,51 @@ class ArrivalProcess:
         if self.rate <= 0:
             raise ValueError(f"rate must be > 0, got {self.rate}")
 
+    def times(self, generator: torch.Generator, num_jobs: int, rate=None,
+              device=None, batch: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Arrival instants of the first ``num_jobs`` jobs (ascending,
+        float32), drawn as ``batch + (num_jobs,)`` on ``device`` (default:
+        the generator's).  ``rate`` (default ``self.rate``) is a float or
+        a tensor that broadcasts against the draw: the batched engine
+        passes its (L, 1) load lanes and a ``batch`` of (reps, 1), so one
+        draw serves every load with only the rate swept."""
+        raise NotImplementedError
+
+    def _rate(self, rate, device) -> torch.Tensor:
+        r = self.rate if rate is None else rate
+        # a float32 tensor on the draw's device: a true division, as the
+        # reference's, where a host scalar could become a reciprocal
+        return torch.as_tensor(r, dtype=torch.float32, device=device)
+
+    @staticmethod
+    def _exponential(generator, shape, device) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=device
+                           ).exponential_(generator=generator)
+
 
 @dataclasses.dataclass(frozen=True)
 class PoissonArrivals(ArrivalProcess):
     """Memoryless arrivals: i.i.d. Exp(1/rate) gaps (the paper refs' M/·)."""
 
+    def times(self, generator, num_jobs, rate=None, device=None, batch=()):
+        dev = target(generator, device)
+        e = self._exponential(generator, tuple(batch) + (num_jobs,), dev)
+        return torch.cumsum(e / self._rate(rate, dev), dim=-1)
+
 
 @dataclasses.dataclass(frozen=True)
 class DeterministicArrivals(ArrivalProcess):
-    """Clockwork arrivals: constant gap 1/rate (D/·; zero arrival CV)."""
+    """Clockwork arrivals: constant gap 1/rate (D/·; zero arrival CV).
+
+    The generator is not drawn from, so replication lanes share the
+    identical arrival path."""
+
+    def times(self, generator, num_jobs, rate=None, device=None, batch=()):
+        dev = target(generator, device)
+        steps = torch.arange(1, num_jobs + 1, dtype=torch.float32,
+                             device=dev)
+        return steps.expand(tuple(batch) + (num_jobs,)) / \
+            self._rate(rate, dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +137,45 @@ class MMPPArrivals(ArrivalProcess):
             raise ValueError("slow and burst multipliers must be > 0")
         if not (0.0 < self.switch < 1.0):
             raise ValueError(f"switch must be in (0,1), got {self.switch}")
+
+    def times(self, generator, num_jobs, rate=None, device=None, batch=()):
+        dev = target(generator, device)
+        shape = tuple(batch) + (num_jobs,)
+        e = self._exponential(generator, shape, dev)
+        flips = torch.rand(shape, generator=generator, device=dev) \
+            < self.switch
+        state = torch.cumsum(flips.to(torch.int32), dim=-1) % 2  # start slow
+        # normalize: stationary per-arrival state is 1/2-1/2 (symmetric
+        # flips), so E[gap] = c/2 * (1/slow + 1/burst) / r == 1/r
+        c = 0.5 * (1.0 / self.slow + 1.0 / self.burst)
+        rates = self._rate(rate, dev) * c * torch.where(
+            state == 0, self.slow, self.burst)
+        return torch.cumsum(e / rates, dim=-1)
+
+
+def arrival_gap(last_ts: float, timestamp: float) -> float:
+    """The interarrival gap between consecutive job instants — the ONE
+    clock-tolerance rule shared by every timestamp consumer.
+
+    float32-sourced clocks (e.g. a reassociating cumsum) can tick
+    backwards by an ulp; such a tick clamps to a zero gap, while a
+    decrease beyond rounding scale is a caller error and raises.  The
+    tolerance is ~3 float32 ulps of the timestamp magnitude (an epoch-
+    scale clock at 1.7e9 s tolerates ~11 min of float32 quantization,
+    not hours), so genuinely out-of-order delivery still raises.  A
+    non-finite timestamp raises too — silently skipping one would merge
+    its two neighboring gaps into a doubled gap (rate biased low), and
+    letting it through would poison every decayed moment with NaN.
+    """
+    t = float(timestamp)
+    if not math.isfinite(t):
+        raise ValueError(f"arrival timestamp must be finite, got {t}")
+    gap = t - float(last_ts)
+    if gap < -4e-7 * max(abs(t), 1.0):
+        raise ValueError(
+            f"timestamps must be non-decreasing "
+            f"(got {timestamp} after {last_ts})")
+    return max(gap, 0.0)
 
 
 def validate_worker_speeds(speeds, n: int) -> Tuple[float, ...]:
@@ -109,8 +200,15 @@ class FailureModel:
     Each worker alternates independent up intervals ~ Exp(mean ``mttf``)
     and down intervals ~ Exp(mean ``mttr``), anchored at time 0 (every
     worker starts up).  A crash kills the task in service; relaunch is
-    governed by the job's ``RetryPolicy``.  ``max_events`` bounds the
-    sampled schedule length per worker.
+    governed by the job's ``RetryPolicy``.  The process is exogenous
+    wall-clock machine behavior, independent of the workload, which is
+    what lets both cluster backends consume ONE pre-sampled schedule
+    (``schedule``) and walk identical failure trajectories.
+
+    ``max_events`` bounds the sampled schedule length per worker: beyond
+    the last sampled crash a worker never fails again.  Size it so
+    ``max_events * (mttf + mttr)`` comfortably exceeds the simulated
+    horizon (the default 64 covers ~64 MTTFs).
     """
 
     mttf: float
@@ -125,6 +223,63 @@ class FailureModel:
         if int(self.max_events) < 1:
             raise ValueError(
                 f"max_events must be >= 1, got {self.max_events}")
+
+    def schedule(self, generator: torch.Generator, n: int,
+                 max_events: Optional[int] = None,
+                 batch: Tuple[int, ...] = ()):
+        """Sample (crash_times, recovery_times), each
+        ``batch + (n, max_events)`` float32 on the generator's device.
+
+        Rows are per-worker, columns ascending: worker w is UP on
+        [R[w, m-1], C[w, m]) and DOWN on [C[w, m], R[w, m]) (with
+        R[w, -1] = 0).  CRN discipline: one draw covers the whole fleet,
+        so sweep lanes (k, load) share the identical machine behavior and
+        only the ``batch`` (replication) axis refreshes it.
+        """
+        m = self.max_events if max_events is None else int(max_events)
+        dev = generator.device
+        shape = tuple(batch) + (n, m)
+        up = torch.empty(shape, dtype=torch.float32, device=dev
+                         ).exponential_(generator=generator) * self.mttf
+        down = torch.empty(shape, dtype=torch.float32, device=dev
+                           ).exponential_(generator=generator) * self.mttr
+        # C[., 0] = up_0; R = C + down; C[., m] = R[., m-1] + up_m
+        crash = torch.cumsum(
+            up + torch.nn.functional.pad(down[..., :-1], (1, 0)), dim=-1)
+        return crash, crash + down
+
+
+def sample_task_matrix(
+    dist: ServiceTime,
+    scaling: Scaling,
+    n: int,
+    s: int,
+    num_jobs: int,
+    generator: torch.Generator,
+    delta: Optional[float] = None,
+    worker_speeds: Optional[Sequence[float]] = None,
+    start_job: Optional[int] = None,
+) -> torch.Tensor:
+    """(num_jobs, n) float32 task service times for tasks of ``s`` CUs,
+    drawn from ``generator`` on its device.
+
+    ``worker_speeds`` (length n, positive) are multiplicative slowdown
+    factors — worker w serves every task ``speeds[w]`` times its sampled
+    duration (heterogeneous machines).  Both cluster backends draw from
+    here, so a shared generator seed yields the same sample path.
+
+    ``start_job`` (the per-job row-keyed draw of the chunked fleet
+    engine) is not ported yet.
+    """
+    if start_job is not None:
+        raise NotImplementedError(
+            "row-keyed task draws (start_job) belong to the chunked fleet "
+            "engine, which the port does not have yet (the next slice)")
+    t = dist.sample_task(generator, (num_jobs, n), s, scaling, delta=delta)
+    if worker_speeds is not None:
+        t = t * torch.as_tensor(worker_speeds, dtype=t.dtype,
+                                device=t.device)[None, :]
+    return t
 
 
 @dataclasses.dataclass(frozen=True)

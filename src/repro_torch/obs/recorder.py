@@ -1,0 +1,311 @@
+"""The flight recorder: structured spans + typed events on a ring.
+
+One process-global ``Recorder`` (installed with :func:`install` or the
+:func:`recording` context manager) collects every layer's typed events —
+drift alarms, plan commits, cache hits/misses, compiles, oracle
+fallbacks, quarantines, actuator applies, SLO burns — on a single
+monotonic timeline, bounded by a ring buffer, exportable as JSONL and
+parseable back into the identical typed events (round-trip pinned by
+``tests/test_obs.py``).
+
+Clock discipline (DESIGN.md §12): timestamps come from a MONOTONIC
+clock (``time.perf_counter``) rebased to the recorder's install epoch.
+They are observability-only — controller *decisions* remain pure
+functions of the sample stream (the wall-clock-free contract of
+``control/controller.py``), which is why every decision-relevant event
+also carries its logical index (the CU-sample counter ``at``) in its
+fields: the decision log reconstructed from a trace is clock-free and
+bit-for-bit comparable across machines.
+
+Disabled-recorder cost: when no recorder is installed, ``active()``
+returns None, ``span()`` hands back one shared no-op singleton, and
+``event()`` returns before touching anything — instrumented hot paths
+guard with ``active()`` so the disabled path allocates no per-event
+objects (gated to <2% of ``RedundancyController.observe`` wall time by
+``tests/test_obs.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+
+__all__ = ["EVENT_KINDS", "Event", "NULL_SPAN", "Recorder", "active",
+           "event", "install", "parse_jsonl", "recording", "span",
+           "uninstall"]
+
+#: The event taxonomy (DESIGN.md §12).  Exporters and parsers reject
+#: unknown kinds so a trace file is schema-checked on both ends.
+EVENT_KINDS = frozenset({
+    "drift_alarm",      # a detector channel crossed (service/load/failure/slo)
+    "commit",           # the controller committed a (model, policy) decision
+    "cache_hit",        # compiled-surface cache: warm executable reused
+    "cache_miss",       # compiled-surface cache: new structural key
+    "compile",          # an XLA trace was paid (fields carry the wall ms)
+    "oracle_fallback",  # sweep backend failed; commit re-planned on the DES
+    "quarantine",       # the controller's quarantine set changed
+    "actuate",          # an actuator applied a committed (policy, model)
+    "slo_alarm",        # the SLO monitor's multi-window burn crossed
+    "infeasible",       # a commit aborted: no finite cell on the surface
+    "sweep",            # one cluster-engine surface call (batched/fleet rep)
+    "span",             # a closed span (name, start ts, duration)
+    "mark",             # free-form annotation (regime boundaries, footers)
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """One recorded event.  ``ts`` is seconds on the recorder's
+    monotonic clock (epoch = recorder install); ``dur`` is a span's
+    duration in seconds (None for instantaneous events); ``fields`` are
+    the kind-specific payload (JSON-serializable scalars/lists only)."""
+
+    ts: float
+    kind: str
+    name: str = ""
+    dur: Optional[float] = None
+    fields: Tuple[Tuple[str, Any], ...] = ()
+
+    def field_dict(self) -> Dict[str, Any]:
+        return dict(self.fields)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {"ts": self.ts, "kind": self.kind, "name": self.name,
+             "dur": self.dur, "fields": dict(self.fields)},
+            separators=(",", ":"), sort_keys=True)
+
+    @staticmethod
+    def from_json(line: str) -> "Event":
+        obj = json.loads(line)
+        kind = obj["kind"]
+        if kind not in EVENT_KINDS:
+            raise ValueError(f"unknown event kind {kind!r} in trace line")
+        fields = obj.get("fields", {})
+        return Event(ts=float(obj["ts"]), kind=kind,
+                     name=obj.get("name", ""),
+                     dur=None if obj.get("dur") is None
+                     else float(obj["dur"]),
+                     fields=tuple(sorted(
+                         (str(k), _canon(v)) for k, v in fields.items())))
+
+
+def _canon(v):
+    """Canonical hashable form of a JSON field value (lists -> tuples,
+    recursively), so parsed events compare equal to emitted ones."""
+    if isinstance(v, list):
+        return tuple(_canon(x) for x in v)
+    return v
+
+
+class _NullSpan:
+    """The shared disabled-path span: entering/exiting does nothing.
+    A single module-level instance is reused for every disabled
+    ``span()`` call — no per-event allocation on the disabled path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """Context manager recording one ``span`` event at exit."""
+
+    __slots__ = ("_rec", "_name", "_fields", "_t0")
+
+    def __init__(self, rec: "Recorder", name: str, fields: dict):
+        self._rec = rec
+        self._name = name
+        self._fields = fields
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = self._rec.now()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = self._rec.now()
+        self._rec._append(Event(
+            ts=self._t0, kind="span", name=self._name, dur=t1 - self._t0,
+            fields=tuple(sorted(
+                (str(k), _canon_out(v)) for k, v in self._fields.items()))))
+        return False
+
+
+def _canon_out(v):
+    """Canonicalize an outgoing field value so the in-memory event
+    equals its JSONL round trip: tuples/lists -> tuples, numpy scalars
+    -> python scalars (json would coerce them anyway)."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_canon_out(x) for x in v)
+    if hasattr(v, "item") and not isinstance(v, (str, bytes)):
+        try:
+            return v.item()
+        except Exception:
+            pass
+    if isinstance(v, bool) or v is None or isinstance(v, (int, str)):
+        return v
+    if isinstance(v, float):
+        return v
+    return str(v)
+
+
+class Recorder:
+    """Bounded in-memory event ring with a span API and JSONL export.
+
+    ``capacity`` bounds memory: the ring keeps the most recent events
+    and counts evictions in ``dropped`` (a trace that wrapped says so
+    instead of silently looking complete).  Appends are GIL-atomic
+    deque operations — safe under free-threaded instrumentation without
+    a lock on the hot path.
+    """
+
+    def __init__(self, capacity: int = 65536,
+                 clock=time.perf_counter):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._clock = clock
+        self._epoch = clock()
+        self._ring: deque = deque(maxlen=int(capacity))
+        self.dropped = 0
+
+    # -- clock --------------------------------------------------------------
+    def now(self) -> float:
+        """Seconds since this recorder was created (monotonic)."""
+        return self._clock() - self._epoch
+
+    # -- write side ---------------------------------------------------------
+    def _append(self, ev: Event) -> None:
+        ring = self._ring
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+        ring.append(ev)
+
+    def event(self, kind: str, name: str = "", dur: Optional[float] = None,
+              **fields) -> None:
+        """Record one typed event at the current clock reading."""
+        if kind not in EVENT_KINDS:
+            raise ValueError(
+                f"unknown event kind {kind!r}; known: "
+                f"{sorted(EVENT_KINDS)}")
+        self._append(Event(
+            ts=self.now(), kind=kind, name=name, dur=dur,
+            fields=tuple(sorted(
+                (str(k), _canon_out(v)) for k, v in fields.items()))))
+
+    def span(self, name: str, **fields) -> _Span:
+        """``with rec.span("replan", k=8): ...`` records one ``span``
+        event at exit carrying the start timestamp and duration."""
+        return _Span(self, name, fields)
+
+    # -- read side ----------------------------------------------------------
+    def events(self, kind: Optional[str] = None) -> List[Event]:
+        evs = list(self._ring)
+        if kind is None:
+            return evs
+        return [e for e in evs if e.kind == kind]
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    # -- export -------------------------------------------------------------
+    def export_jsonl(self, path_or_file: Union[str, io.IOBase]) -> int:
+        """Write the ring as JSONL (one event per line, recording
+        order).  Returns the number of events written."""
+        evs = list(self._ring)
+        if isinstance(path_or_file, str):
+            with open(path_or_file, "w") as f:
+                for e in evs:
+                    f.write(e.to_json() + "\n")
+        else:
+            for e in evs:
+                path_or_file.write(e.to_json() + "\n")
+        return len(evs)
+
+
+def parse_jsonl(path_or_file: Union[str, io.IOBase, Iterable[str]]
+                ) -> List[Event]:
+    """Parse a JSONL trace back into typed events (the exact inverse of
+    ``Recorder.export_jsonl`` — round-trip equality is pinned)."""
+    if isinstance(path_or_file, str):
+        with open(path_or_file) as f:
+            return [Event.from_json(ln) for ln in f if ln.strip()]
+    return [Event.from_json(ln) for ln in path_or_file if ln.strip()]
+
+
+# --------------------------------------------------------------------------
+# The process-global recorder
+# --------------------------------------------------------------------------
+
+_ACTIVE: Optional[Recorder] = None
+
+
+def active() -> Optional[Recorder]:
+    """The installed recorder, or None (tracing disabled).  THE hot-path
+    guard: instrumented code calls this before building any event
+    payload, so a disabled recorder costs one global read + one `is not
+    None` per site."""
+    return _ACTIVE
+
+
+def install(recorder: Optional[Recorder] = None) -> Recorder:
+    """Install (and return) the process-global recorder."""
+    global _ACTIVE
+    _ACTIVE = recorder if recorder is not None else Recorder()
+    return _ACTIVE
+
+
+def uninstall() -> Optional[Recorder]:
+    """Disable tracing; returns the recorder that was installed."""
+    global _ACTIVE
+    rec, _ACTIVE = _ACTIVE, None
+    return rec
+
+
+class recording:
+    """``with recording() as rec: ...`` — install a recorder for the
+    block, restore the previous one after (re-entrant)."""
+
+    def __init__(self, recorder: Optional[Recorder] = None,
+                 capacity: int = 65536):
+        self._rec = recorder if recorder is not None \
+            else Recorder(capacity=capacity)
+        self._prev: Optional[Recorder] = None
+
+    def __enter__(self) -> Recorder:
+        global _ACTIVE
+        self._prev = _ACTIVE
+        _ACTIVE = self._rec
+        return self._rec
+
+    def __exit__(self, *exc):
+        global _ACTIVE
+        _ACTIVE = self._prev
+        return False
+
+
+def span(name: str, **fields):
+    """Module-level span through the global recorder; the shared no-op
+    singleton when tracing is disabled (zero allocation)."""
+    rec = _ACTIVE
+    return rec.span(name, **fields) if rec is not None else NULL_SPAN
+
+
+def event(kind: str, name: str = "", dur: Optional[float] = None,
+          **fields) -> None:
+    """Module-level event through the global recorder; a no-op when
+    disabled.  Hot paths should prefer guarding with ``active()`` so
+    the kwargs dict is never even built."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.event(kind, name=name, dur=dur, **fields)
