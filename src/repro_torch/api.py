@@ -189,11 +189,12 @@ class LoadAwareLatency:
     ``Planner.co_plan`` / ``Planner.co_kstar_vs_load``.
 
     ``device`` (default ``"cuda"``) receives the draws and runs the
-    lanes.  ``backend="cached"`` and the fleet-scale knobs
-    ``chunk_size`` / ``stream`` are accepted here as in the JAX package
-    and raise ``NotImplementedError`` when a surface is asked for: the
-    compiled-surface cache and the chunked engine come with the next
-    slice of the port.
+    lanes.  ``backend="cached"`` counts each surface under its structural
+    key (``runtime.surface_cache``).  The fleet-scale knobs
+    (``runtime.fleet``): a chunk size bounds the engine's memory at any
+    num_jobs; ``stream=True`` swaps the exact latency cube for streaming
+    Welford + reservoir statistics.  Both ride the batched/cached
+    backends only.
     """
 
     arrival_rate: float = 0.05
@@ -251,9 +252,9 @@ class LoadAwareLatency:
     def co_surface(self, scenario: Scenario, loads: Sequence[float],
                    assignments: Sequence, ks: Optional[Sequence[int]] = None):
         """The (loads x ks x assignments) ``AssignmentSurface`` — the whole
-        co-optimization grid in one engine call on the batched backend
-        (``assign.surface.co_sweep`` with this objective's queueing
-        knobs)."""
+        co-optimization grid in one engine call on the batched/cached
+        backends (``assign.surface.co_sweep`` with this objective's
+        queueing knobs)."""
         from .assign.surface import co_sweep
         return co_sweep(scenario, list(loads), assignments,
                         ks=list(ks) if ks is not None else None,

@@ -133,13 +133,20 @@ def co_sweep(scenario: Scenario, loads: Sequence[float],
     pad with empty rows the lanes mask out).  Each assignment must be
     legal for every k in ``ks`` (g | k and g | n).
 
-    ``backend="oracle"`` runs one discrete-event sweep per assignment.
-    ``backend="cached"`` (the compiled-surface cache) and the chunked
-    knobs ``chunk_size`` / ``stream`` / ``shard`` (with ``reservoir``)
-    belong to the fleet slice of the port, which is not in yet: they
-    raise ``NotImplementedError``.
+    ``backend="cached"`` runs the same flattened grid through the surface
+    cache (``runtime.surface_cache``): the load axis bucket-padded and
+    the call counted under a key that carries the ASSIGNMENT SIGNATURES
+    (structural: group counts, not mask contents) — the same numbers as
+    ``"batched"``.  ``backend="oracle"`` runs one discrete-event sweep
+    per assignment.
+
+    Any of ``chunk_size`` / ``stream`` / ``shard`` runs the flattened
+    A x K grid on the chunked fleet engine instead (``runtime.fleet``;
+    batched and cached backends — the cached route additionally
+    bucket-pads the load axis and records the structural key).  Every
+    assignment must then be per-job constant (``RandomGroups`` is
+    rejected).
     """
-    from ..runtime.cluster_batched import _chunked_not_ported
     assignments = _resolved(assignments)
     chunked = chunk_size is not None or stream or shard is not None
     if chunked and backend == "oracle":
@@ -155,26 +162,55 @@ def co_sweep(scenario: Scenario, loads: Sequence[float],
                          device=device)
             for a in assignments)
         return AssignmentSurface(assignments=assignments, sweeps=sweeps)
-    if backend == "cached":
-        raise NotImplementedError(
-            "backend='cached' (the compiled-surface cache) is not ported "
-            "yet: it comes with the next slice; use 'batched' or 'oracle'")
-    if backend != "batched":
+    if backend not in ("batched", "cached"):
         raise ValueError(f"backend must be 'batched', 'cached', or "
                          f"'oracle', got {backend!r}")
-    _chunked_not_ported(chunk_size, stream, shard)
 
     from ..runtime.cluster_batched import (_host, _sweep_core,
                                            resolve_failure_args,
                                            summarize_sweep,
                                            validate_sweep_args)
+    from ..runtime.surface_cache import _padded_loads, record_cache_key
 
     dev = resolve(device)
     n = scenario.n
     ks, loads, warmup, arrivals, speeds = validate_sweep_args(
         scenario, loads, ks, num_jobs, reps, warmup)
     failures, retry = resolve_failure_args(scenario, retry)
-    K, A = len(ks), len(assignments)
+    K, A, L = len(ks), len(assignments), len(loads)
+    run_loads = _padded_loads(loads) if backend == "cached" else loads
+
+    def key(head, *tail):
+        return (head, type(scenario.dist).__name__, scenario.scaling.value,
+                n, tuple(ks) * A, len(run_loads), int(num_jobs), int(reps),
+                bool(preempt), type(arrivals).__name__,
+                scenario.delta is None,
+                None if failures is None else int(failures.max_events),
+                retry) + tail
+
+    if chunked:
+        from ..runtime.fleet import (co_fleet_lanes, default_chunk,
+                                     run_fleet, summarize_fleet,
+                                     trim_raw_loads)
+        lanes = co_fleet_lanes(assignments, n, ks, scenario.worker_speeds)
+        chunk = default_chunk(num_jobs) if chunk_size is None \
+            else int(chunk_size)
+        if backend == "cached":
+            record_cache_key(key("co-fleet", lanes.signature, chunk,
+                                 bool(stream), int(reservoir),
+                                 0 if shard is None else int(shard)))
+        raw = run_fleet(scenario, run_loads, lanes, num_jobs=int(num_jobs),
+                        reps=int(reps), preempt=bool(preempt),
+                        cancel_overhead=float(cancel_overhead),
+                        seed=int(seed), warmup=warmup, arrivals=arrivals,
+                        speeds=speeds, failures=failures, retry=retry,
+                        chunk=chunk, stream=bool(stream),
+                        reservoir=int(reservoir), shard=shard, device=dev)
+        raw = trim_raw_loads(raw, L)
+        sweeps = tuple(
+            summarize_fleet(raw, ks, kslice=slice(ai * K, (ai + 1) * K))
+            for ai in range(A))
+        return AssignmentSurface(assignments=assignments, sweeps=sweeps)
 
     # -- flatten the (assignment, k) grid into one lane axis ---------------
     rs, gids, gmax = [], [], 1
@@ -185,12 +221,17 @@ def co_sweep(scenario: Scenario, loads: Sequence[float],
             gmax = max(gmax, g)
             rs.append(r)
             gids.append(gid)
+    if backend == "cached":
+        record_cache_key(key("co", gmax, tuple(
+            a.cache_signature(n, tuple(ks)) for a in assignments)))
     out = _host(_sweep_core(
-        generator(seed, dev), np.asarray(loads, np.float32), speeds,
+        generator(seed, dev), np.asarray(run_loads, np.float32), speeds,
         float(cancel_overhead), scenario.dist, scenario.scaling, n,
         tuple(ks) * A, int(num_jobs), int(reps), bool(preempt), arrivals,
         None if scenario.delta is None else float(scenario.delta),
         failures, retry, gmax, np.asarray(rs, np.int64), np.stack(gids)))
+    # trim the bucket-padded load lanes (lanes are independent)
+    out = tuple(None if x is None else x[:, :L] for x in out)
     if retry is None:
         lat, busy, wasted, a_last = out
         ok = horizon = None

@@ -13,7 +13,11 @@ Three task-size scaling models for a task of s CUs (Sec. II-D):
                         Y = s*Delta + Erlang(s, W))
 
 Samplers draw float32 tensors from an explicit ``torch.Generator``; the
-tensor lands on ``device``, which defaults to the generator's own.  Scalar
+tensor lands on ``device``, which defaults to the generator's own.  The
+row-keyed draws of the chunked fleet engine come as uniforms from
+``core.threefry`` instead, and ``from_uniform`` / ``noise_from_uniform``
+turn them into each law by one transform per law, with the law the
+generator-based samplers give.  Scalar
 helpers (mean, tail, pdf), the fits and model selection are plain numpy
 for use in the planner and benchmarks.
 """
@@ -36,6 +40,11 @@ ATOM_RTOL = 0.25
 
 #: Service-time families model selection scores, in tie-break order.
 FAMILIES = ("shifted_exp", "pareto", "bimodal")
+
+
+def exponential_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Unit-mean exponentials from uniforms in [0, 1): ``-log1p(-u)``."""
+    return -torch.log1p(-u)
 
 
 class Scaling(enum.Enum):
@@ -83,6 +92,15 @@ class ServiceTime:
         """Sample the random component Z = X - shift."""
         return self.sample(generator, shape, device) - self.shift
 
+    # -- the same laws from given uniforms (row-keyed draws) ----------------
+    def from_uniform(self, u: torch.Tensor) -> torch.Tensor:
+        """CU samples X, one per float32 uniform of ``u`` in [0, 1)."""
+        raise NotImplementedError
+
+    def noise_from_uniform(self, u: torch.Tensor) -> torch.Tensor:
+        """The random component Z = X - shift, one per uniform."""
+        return self.from_uniform(u) - self.shift
+
     # -- task-level sampling -------------------------------------------------
     def sample_task(
         self,
@@ -116,6 +134,20 @@ class ServiceTime:
         if scaling is Scaling.ADDITIVE:
             draws = self.sample(generator, tuple(shape) + (s,), device)
             return draws.sum(dim=-1)
+        raise ValueError(f"unknown scaling {scaling}")
+
+    def task_from_uniform(self, u: torch.Tensor, s: int, scaling: Scaling,
+                          delta: float | None = None) -> torch.Tensor:
+        """``sample_task`` from given uniforms: ``u`` is (..., s) under
+        additive scaling (one uniform per CU) and (...) otherwise."""
+        s = int(s)
+        d = self.shift if delta is None else float(delta)
+        if scaling is Scaling.SERVER_DEPENDENT:
+            return d + s * self.noise_from_uniform(u)
+        if scaling is Scaling.DATA_DEPENDENT:
+            return s * d + self.noise_from_uniform(u)
+        if scaling is Scaling.ADDITIVE:
+            return self.from_uniform(u).sum(dim=-1)
         raise ValueError(f"unknown scaling {scaling}")
 
 
@@ -155,6 +187,16 @@ class ShiftedExp(ServiceTime):
                                device=_target(generator, device))
         return self.W * self._exp(generator, shape, device)
 
+    def from_uniform(self, u):
+        if self.W == 0.0:
+            return torch.full_like(u, self.delta)
+        return self.delta + self.W * exponential_from_uniform(u)
+
+    def noise_from_uniform(self, u):
+        if self.W == 0.0:
+            return torch.zeros_like(u)
+        return self.W * exponential_from_uniform(u)
+
     def mean(self) -> float:
         return self.delta + self.W
 
@@ -193,6 +235,14 @@ class Pareto(ServiceTime):
                         device=_target(generator, device)
                         ).uniform_(2.0 ** -24, 1.0, generator=generator)
         return self.lam * u ** (-1.0 / self.alpha)
+
+    def from_uniform(self, u):
+        # the generator-based sampler's clamp at the 2^-24 quantile; the
+        # power as exp(log(u) * -1/alpha): torch's CPU pow by a scalar
+        # rounds a vector's tail elements differently from its body, which
+        # would make a row depend on where a chunk cut it
+        return self.lam * torch.exp(torch.log(u.clamp(min=2.0 ** -24))
+                                    * (-1.0 / self.alpha))
 
     def mean(self) -> float:
         if self.alpha <= 1:
@@ -235,6 +285,9 @@ class BiModal(ServiceTime):
                               device=dev) < self.eps
         return torch.ones(tuple(shape), dtype=torch.float32,
                           device=dev).masked_fill_(straggle, self.B)
+
+    def from_uniform(self, u):
+        return torch.ones_like(u).masked_fill_(u < self.eps, self.B)
 
     def mean(self) -> float:
         return 1.0 * (1.0 - self.eps) + self.B * self.eps

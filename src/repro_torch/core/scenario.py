@@ -28,6 +28,12 @@ backends (``runtime.cluster_oracle``, ``runtime.cluster_batched``):
     batched engine's single-cell path consume the same matrix for a
     given generator seed, which is what makes exact sample-path parity
     possible.
+  * The chunked fleet engine draws from per-GLOBAL-job-index row keys
+    instead (``job_row_keys``, ``ArrivalProcess.gaps_chunk``,
+    ``FailureModel.schedule_chunk``, ``sample_task_matrix(start_job=)``):
+    counter-based Threefry bits (``core.threefry``), so job j's row is a
+    pure function of (key, j) and any chunking of [0, N) draws the same
+    rows bit for bit, on the host and on the card alike.
 """
 from __future__ import annotations
 
@@ -40,16 +46,37 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, generator, resolve, target
+from . import threefry
 from .batched import divisors
-from .distributions import BiModal, Scaling, ServiceTime, ShiftedExp
+from .distributions import (BiModal, Scaling, ServiceTime, ShiftedExp,
+                            exponential_from_uniform)
 from .policy import Policy, RetryPolicy  # noqa: F401  (re-export)
 
 __all__ = [
     "ArrivalProcess", "FailureModel", "PoissonArrivals",
     "DeterministicArrivals", "MMPPArrivals", "RetryPolicy", "Scenario",
-    "arrival_gap", "sample_task_matrix", "task_survival",
+    "arrival_gap", "job_row_keys", "sample_task_matrix", "task_survival",
     "validate_worker_speeds",
 ]
+
+
+# --------------------------------------------------------------------------
+# Chunk-offset sampling discipline
+# --------------------------------------------------------------------------
+# A bulk draw sliced at an offset is not reproducible: which elements a
+# generator fills depends on the whole draw.  The chunked fleet engine
+# therefore derives one key PER JOB INDEX — ``fold_in(key, j)`` — and
+# draws each job's row from its own key, so any chunk [start, start + m)
+# of such a draw is bit-identical to the same rows of the full draw BY
+# CONSTRUCTION.
+
+def job_row_keys(key: torch.Tensor, start_job: int,
+                 num_jobs: int) -> torch.Tensor:
+    """Per-job keys ``fold_in(key, start_job + i)`` for i in
+    [0, num_jobs): a (num_jobs, 2) tensor on ``key``'s device."""
+    idx = int(start_job) + torch.arange(int(num_jobs), dtype=torch.int64,
+                                        device=key.device)
+    return threefry.fold_in(key, idx)
 
 
 # --------------------------------------------------------------------------
@@ -92,6 +119,29 @@ class ArrivalProcess:
         return torch.empty(shape, dtype=torch.float32, device=device
                            ).exponential_(generator=generator)
 
+    # -- chunk-offset sampling (fleet-scale streaming engine) ---------------
+    def arrival_state0(self, device=DEFAULT_DEVICE) -> torch.Tensor:
+        """Initial cross-chunk state for ``gaps_chunk`` (an int64 scalar
+        on ``device``; an opaque carry — only MMPP uses it, for its
+        modulating chain)."""
+        return torch.zeros((), dtype=torch.int64, device=resolve(device))
+
+    def gaps_chunk(self, key: torch.Tensor, start_job: int, num_jobs: int,
+                   rate=None, state=None):
+        """Interarrival gaps of jobs [start_job, start_job + num_jobs).
+
+        Returns ``(gaps, state')`` where ``gaps[i]`` is the gap ending at
+        the arrival of job ``start_job + i``, drawn on ``key``'s device
+        from the per-job row keys (``job_row_keys``), so sampling any
+        chunking of [0, N) with the state carried yields bit-identical
+        gaps to one call over [0, N).  A different (equal-in-law) sample
+        path from the generator-based ``times``.
+        """
+        raise NotImplementedError
+
+    def _state(self, key, state):
+        return self.arrival_state0(key.device) if state is None else state
+
 
 @dataclasses.dataclass(frozen=True)
 class PoissonArrivals(ArrivalProcess):
@@ -101,6 +151,11 @@ class PoissonArrivals(ArrivalProcess):
         dev = target(generator, device)
         e = self._exponential(generator, tuple(batch) + (num_jobs,), dev)
         return torch.cumsum(e / self._rate(rate, dev), dim=-1)
+
+    def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
+        rks = job_row_keys(key, start_job, num_jobs)
+        e = exponential_from_uniform(threefry.uniform(rks, 1)[:, 0])
+        return e / self._rate(rate, key.device), self._state(key, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +171,11 @@ class DeterministicArrivals(ArrivalProcess):
                              device=dev)
         return steps.expand(tuple(batch) + (num_jobs,)) / \
             self._rate(rate, dev)
+
+    def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
+        ones = torch.ones((int(num_jobs),), dtype=torch.float32,
+                          device=key.device)
+        return ones / self._rate(rate, key.device), self._state(key, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +211,20 @@ class MMPPArrivals(ArrivalProcess):
         rates = self._rate(rate, dev) * c * torch.where(
             state == 0, self.slow, self.burst)
         return torch.cumsum(e / rates, dim=-1)
+
+    def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
+        # Same per-arrival modulation as ``times``, with the chain's
+        # parity carried ACROSS chunks: ``state`` counts flips so far
+        # (mod 2), so any chunking of [0, N) walks the identical chain.
+        state = self._state(key, state)
+        u = threefry.uniform(job_row_keys(key, start_job, num_jobs), 2)
+        e = exponential_from_uniform(u[:, 0])
+        flips = (u[:, 1] < self.switch).to(torch.int64)
+        st = (state + torch.cumsum(flips, dim=0)) % 2        # start slow
+        c = 0.5 * (1.0 / self.slow + 1.0 / self.burst)
+        rates = self._rate(rate, key.device) * c * torch.where(
+            st == 0, self.slow, self.burst)
+        return e / rates, (state + flips.sum()) % 2
 
 
 def arrival_gap(last_ts: float, timestamp: float) -> float:
@@ -248,6 +322,34 @@ class FailureModel:
             up + torch.nn.functional.pad(down[..., :-1], (1, 0)), dim=-1)
         return crash, crash + down
 
+    def schedule_chunk(self, key: torch.Tensor, n: int, start_event: int,
+                       num_events: int, state: Optional[torch.Tensor] = None):
+        """Chunk-offset twin of ``schedule``: columns [start_event,
+        start_event + num_events) of the crash/recovery schedule, with
+        the per-worker clock carried across chunks, drawn on ``key``'s
+        device.
+
+        Returns ``(crash, recover, state')`` where ``state`` is the (n,)
+        recovery instant preceding the chunk (zeros initially).  Event
+        column m draws its n up and n down intervals from
+        ``fold_in(key, m)``, so the interval draws of any chunking of
+        [0, M) are bit-identical to one call over [0, M); the cumulative
+        instants agree to float rounding (a chunk boundary restarts the
+        cumsum from ``state``).
+        """
+        n = int(n)
+        if state is None:
+            state = torch.zeros((n,), dtype=torch.float32, device=key.device)
+        u = threefry.uniform(job_row_keys(key, start_event, num_events),
+                             2 * n)
+        e = exponential_from_uniform(u)                 # (m, 2n)
+        up = (e[:, :n] * self.mttf).T                   # (n, m)
+        down = (e[:, n:] * self.mttr).T
+        crash = state[:, None] + torch.cumsum(
+            up + torch.nn.functional.pad(down[:, :-1], (1, 0)), dim=1)
+        recover = crash + down
+        return crash, recover, recover[:, -1]
+
 
 def sample_task_matrix(
     dist: ServiceTime,
@@ -268,14 +370,27 @@ def sample_task_matrix(
     duration (heterogeneous machines).  Both cluster backends draw from
     here, so a shared generator seed yields the same sample path.
 
-    ``start_job`` (the per-job row-keyed draw of the chunked fleet
-    engine) is not ported yet.
+    ``start_job=None`` is the bulk draw from ``generator``.
+    ``start_job=j0`` switches to the chunk-offset row-key discipline:
+    job ``j0 + i``'s row is drawn from ``fold_in(key, j0 + i)`` so any
+    chunking of [0, N) is bit-identical to slicing one call over [0, N)
+    — the streaming engine's contract (a different, equal-in-law sample
+    path from the bulk draw).  ``generator`` is then a ``core.threefry``
+    key, or a ``torch.Generator`` keyed by its initial seed on its
+    device (its state is not consumed).
     """
-    if start_job is not None:
-        raise NotImplementedError(
-            "row-keyed task draws (start_job) belong to the chunked fleet "
-            "engine, which the port does not have yet (the next slice)")
-    t = dist.sample_task(generator, (num_jobs, n), s, scaling, delta=delta)
+    if start_job is None:
+        t = dist.sample_task(generator, (num_jobs, n), s, scaling,
+                             delta=delta)
+    else:
+        key = generator
+        if isinstance(key, torch.Generator):
+            key = threefry.key(key.initial_seed(), key.device)
+        width = n * int(s) if scaling is Scaling.ADDITIVE else n
+        u = threefry.uniform(job_row_keys(key, start_job, num_jobs), width)
+        if scaling is Scaling.ADDITIVE:
+            u = u.view(int(num_jobs), n, int(s))
+        t = dist.task_from_uniform(u, s, scaling, delta=delta)
     if worker_speeds is not None:
         t = t * torch.as_tensor(worker_speeds, dtype=t.dtype,
                                 device=t.device)[None, :]

@@ -1,6 +1,7 @@
 """Runtime pieces of the port: the cluster/queueing engines (the
-discrete-event oracle and the batched lane engine), straggler sampling
-and the FR-coded step's expected completion time."""
+discrete-event oracle, the batched lane engine and the chunked fleet
+engine with its streaming statistics and surface cache), straggler
+sampling and the FR-coded step's expected completion time."""
 from .cluster import (ClusterConfig, ClusterResult, latency_vs_redundancy,
                       optimal_k_vs_load, simulate)
 from .straggler import (StragglerSim, best_fr_policy, fr_completion_survival,

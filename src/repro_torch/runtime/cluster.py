@@ -171,20 +171,23 @@ def _resolve_backend(backend: str):
 def resolve_sweep_backend(backend: str):
     """The (loads x ks) surface runner for a backend name — the single
     dispatch shared by the module-level sweep entry points and
-    ``api.LoadAwareLatency.surface``.  ``"cached"`` (the compiled-surface
-    cache) and ``"fleet"`` (the chunked streaming engine) are names the
-    JAX package knows and this port does not have yet: they raise."""
+    ``api.LoadAwareLatency.surface``.  ``"cached"`` is the batched engine
+    through the surface cache (``runtime.surface_cache``): identical
+    results, each call counted under its structural key.  ``"fleet"`` is
+    the chunked streaming engine (``runtime.fleet``) at its defaults —
+    the memory-bounded path for fleet-scale surfaces."""
     if backend == "oracle":
         from .cluster_oracle import sweep_oracle
         return sweep_oracle
     if backend == "batched":
         from .cluster_batched import sweep
         return sweep
-    if backend in ("cached", "fleet"):
-        raise NotImplementedError(
-            f"backend {backend!r} (the compiled-surface cache and the "
-            f"chunked fleet engine) is not ported yet: it comes with the "
-            f"next slice; use 'batched' or 'oracle'")
+    if backend == "cached":
+        from .surface_cache import cached_sweep
+        return cached_sweep
+    if backend == "fleet":
+        from .fleet import fleet_sweep
+        return fleet_sweep
     raise ValueError(
         f"backend must be 'oracle', 'batched', 'cached', or 'fleet', "
         f"got {backend!r}")

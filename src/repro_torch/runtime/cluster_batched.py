@@ -780,13 +780,6 @@ def _host(out) -> tuple:
     return tuple(None if x is None else x.cpu().numpy() for x in out)
 
 
-def _chunked_not_ported(chunk_size, stream, shard) -> None:
-    if chunk_size is not None or stream or shard is not None:
-        raise NotImplementedError(
-            "chunk_size/stream/shard select the chunked fleet engine, "
-            "which the port does not have yet (the next slice)")
-
-
 def sweep(scenario: Scenario, loads: Sequence[float],
           ks: Optional[Sequence[int]] = None, num_jobs: int = 1000,
           reps: int = 1, preempt: bool = True, cancel_overhead: float = 0.0,
@@ -818,11 +811,20 @@ def sweep(scenario: Scenario, loads: Sequence[float],
     recurrence (see ``assign.strategies``); ``None``/``AllWorkers`` run
     the ungrouped path bit-for-bit.
 
-    ``chunk_size`` / ``stream`` / ``shard`` (with ``reservoir``) select
-    the chunked fleet engine in the JAX package; the port raises
-    ``NotImplementedError`` for them until that engine is ported.
+    Any of ``chunk_size`` / ``stream`` / ``shard`` (with ``reservoir``)
+    routes the surface through the chunked fleet engine
+    (``runtime.fleet.fleet_sweep``): bounded memory at any num_jobs,
+    per-chunk clock rebasing, optional streaming statistics; its own
+    row-keyed draws, so equal in law to this engine's, not bit for bit.
     """
-    _chunked_not_ported(chunk_size, stream, shard)
+    if chunk_size is not None or stream or shard is not None:
+        from .fleet import fleet_sweep
+        return fleet_sweep(scenario, loads, ks=ks, num_jobs=num_jobs,
+                           reps=reps, preempt=preempt,
+                           cancel_overhead=cancel_overhead, seed=seed,
+                           warmup=warmup, retry=retry, assignment=assignment,
+                           chunk_size=chunk_size, stream=stream,
+                           reservoir=reservoir, shard=shard, device=device)
     dev = resolve(device)
     n = scenario.n
     ks, loads, warmup, arrivals, speeds = validate_sweep_args(

@@ -477,9 +477,17 @@ def test_sample_task_matrix_speeds_and_row_keys():
     np.testing.assert_array_equal(slow.numpy(),
                                   (base * torch.tensor([1., 1., 2., 3.])
                                    ).numpy())
-    with pytest.raises(NotImplementedError, match="fleet"):
-        sample_task_matrix(ShiftedExp(1.0, 2.0), Scaling.SERVER_DEPENDENT,
-                           4, 2, 100, gen(), start_job=0)
+    # row-keyed draws: any chunk of [0, 100) is the same rows of one call,
+    # speeds applied the same way
+    full = sample_task_matrix(ShiftedExp(1.0, 2.0), Scaling.SERVER_DEPENDENT,
+                              4, 2, 100, gen(), worker_speeds=(1, 1, 2, 3),
+                              start_job=0)
+    parts = [sample_task_matrix(ShiftedExp(1.0, 2.0),
+                                Scaling.SERVER_DEPENDENT, 4, 2, b - a, gen(),
+                                worker_speeds=(1, 1, 2, 3), start_job=a)
+             for a, b in ((0, 13), (13, 14), (14, 100))]
+    assert full.shape == (100, 4)
+    np.testing.assert_array_equal(torch.cat(parts).numpy(), full.numpy())
 
 
 # --------------------------------------------------------------------------
@@ -534,21 +542,35 @@ def test_default_device_raises_without_cuda():
 
 
 def test_cached_fleet_and_chunked_knobs_name_the_next_slice():
+    """The six calls that raised before the fleet slice now run, and give
+    what the direct ``fleet_sweep`` / ``cached_sweep`` calls give."""
+    from repro_torch.runtime.fleet import fleet_sweep
+    from repro_torch.runtime.surface_cache import cached_sweep
     sc = Scenario(ShiftedExp(1.0, 3.0), Scaling.SERVER_DEPENDENT, 6)
-    for call in (
-            lambda: papi.LoadAwareLatency(backend="cached",
-                                          device=CPU).surface(sc, [0.02]),
-            lambda: papi.LoadAwareLatency(chunk_size=64,
-                                          device=CPU).surface(sc, [0.02]),
-            lambda: optimal_k_vs_load(sc.dist, sc.scaling, 6, [0.02],
-                                      backend="fleet", device=CPU),
-            lambda: pcb.sweep(sc, [0.02], stream=True, device=CPU),
-            lambda: co_sweep(sc, [0.02], [pa.AllWorkers()],
-                             backend="cached", device=CPU),
-            lambda: co_sweep(sc, [0.02], [pa.AllWorkers()], shard=2,
-                             device=CPU)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+    kw = dict(num_jobs=200, device=CPU)
+    pairs = (
+        (papi.LoadAwareLatency(backend="cached", num_jobs=200, device=CPU
+                               ).surface(sc, [0.02]).mean,
+         cached_sweep(sc, [0.02], **kw).mean),
+        (papi.LoadAwareLatency(chunk_size=64, num_jobs=200, device=CPU
+                               ).surface(sc, [0.02]).mean,
+         fleet_sweep(sc, [0.02], chunk_size=64, **kw).mean),
+        (np.asarray(list(optimal_k_vs_load(
+            sc.dist, sc.scaling, 6, [0.02], num_jobs=200, backend="fleet",
+            device=CPU).values())),
+         np.asarray(list(fleet_sweep(sc, [0.02], warmup=20,
+                                     **kw).kstar().values()))),
+        (pcb.sweep(sc, [0.02], stream=True, **kw).mean,
+         fleet_sweep(sc, [0.02], stream=True, **kw).mean),
+        (co_sweep(sc, [0.02], [pa.AllWorkers()], backend="cached",
+                  **kw).sweeps[0].mean,
+         cached_sweep(sc, [0.02], **kw).mean),
+        (co_sweep(sc, [0.02], [pa.AllWorkers()], shard=1,
+                  **kw).sweeps[0].mean,
+         fleet_sweep(sc, [0.02], shard=1, **kw).mean))
+    for got, want in pairs:
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------------------
