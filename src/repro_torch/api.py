@@ -22,6 +22,9 @@ coded job.
                     loads)`` — the whole load-aware k* map in one engine
                     call — and the (k, assignment) co-planners ``co_plan``
                     and ``co_kstar_vs_load``.
+  * ``AdaptivePlanner`` — the planner with the loop closed
+                    (``repro_torch.control``): feed it telemetry, it
+                    re-plans.
 
 The analytic curves are numpy on the host.  Every objective carries a
 ``device`` (default ``"cuda"``) that receives its draws — the Monte-Carlo
@@ -56,7 +59,8 @@ from .runtime.cluster_batched import Infeasible, InfeasibleSurfaceError
 __all__ = [
     "Scenario", "Policy", "Plan", "Objective",
     "MeanCompletionTime", "QuantileCompletionTime", "LoadAwareLatency",
-    "FRCompletionTime", "Planner", "Infeasible", "InfeasibleSurfaceError",
+    "FRCompletionTime", "Planner", "AdaptivePlanner", "Infeasible",
+    "InfeasibleSurfaceError",
     "ArrivalProcess", "PoissonArrivals", "DeterministicArrivals",
     "MMPPArrivals",
     "Assignment", "AllWorkers", "ReplicationGroups", "RoundRobin",
@@ -454,3 +458,91 @@ class Planner:
             theorem_k=tk,
             theorem_name=tname,
         )
+
+
+# --------------------------------------------------------------------------
+# The closed-loop planner
+# --------------------------------------------------------------------------
+
+class AdaptivePlanner:
+    """``Planner`` with the loop closed: feed it telemetry, it re-plans.
+
+    Wraps ``repro_torch.control.RedundancyController`` — streaming
+    per-family estimators with exponential forgetting, CUSUM +
+    straggle-EWMA drift detection, windowed exact-likelihood refits,
+    hysteresis-gated closed-form re-planning, and actuation into the
+    runtime:
+
+        >>> ap = AdaptivePlanner(Scenario(prior_dist, scaling, n))
+        >>> for step_times in telemetry_stream:      # doctest: +SKIP
+        ...     event = ap.observe(step_times)       # per-CU times
+        ...     if event and event.switched:
+        ...         redeploy(ap.policy)
+
+    ``scenario.dist`` is the prior: it sets the initial policy until the
+    boot window of real telemetry commits a fitted model.  Attach
+    runtime hooks (``control.HedgedServeActuator``, or any object with
+    ``apply(policy, model)``) via ``actuators=`` or ``attach``.
+
+    ``objective="load_aware"`` (or a ``LoadAwareLatency`` instance) closes
+    the loop on LOAD as well: pass each job's arrival ``timestamp`` to
+    ``observe`` and the controller estimates the arrival rate and
+    burstiness, detects load drift with a block CUSUM, and re-plans
+    through the batched cluster engine at the estimated load — a
+    surface-cache call on the objective's device (DESIGN.md §7):
+
+        >>> ap = AdaptivePlanner(scenario, objective="load_aware")
+        >>> for t, step_times in jobs:               # doctest: +SKIP
+        ...     ap.observe(step_times, timestamp=t)
+
+    ``device`` (default ``"cuda"``; pass ``device="cpu"`` for the host)
+    goes to the controller: its closed-form planner and the
+    ``"load_aware"`` string mode's objective.
+    """
+
+    def __init__(self, scenario: Scenario, objective: Optional[Objective] = None,
+                 config=None, detector=None, actuators: Sequence = (),
+                 device=DEFAULT_DEVICE):
+        from .control.controller import RedundancyController
+        self.controller = RedundancyController(
+            scenario, objective=objective, config=config, detector=detector,
+            actuators=actuators, device=device)
+
+    def observe(self, worker_times,
+                timestamp: Optional[float] = None,
+                latency: Optional[float] = None,
+                completion: Optional[float] = None
+                ) -> Optional["ControlEvent"]:
+        """Feed one step's per-CU completion times (plus, in load-aware
+        mode, the job's arrival instant; ``latency`` feeds an attached
+        SLO monitor and ``completion`` the completion-ordered sojourn
+        channel); returns the commit event when the controller
+        re-planned (else None)."""
+        return self.controller.observe(worker_times, timestamp=timestamp,
+                                       latency=latency,
+                                       completion=completion)
+
+    def attach(self, actuator) -> "AdaptivePlanner":
+        self.controller.actuators.append(actuator)
+        return self
+
+    @property
+    def policy(self) -> Policy:
+        """The currently committed redundancy decision."""
+        return self.controller.policy
+
+    @property
+    def model(self):
+        """The committed ``FittedModel`` (None until booted)."""
+        return self.controller.model
+
+    @property
+    def arrival_model(self):
+        """The committed ``ArrivalModel`` (None until the load side has
+        booted — requires timestamps and a load-aware objective)."""
+        return self.controller.arrival_model
+
+    @property
+    def events(self):
+        """Every committed control decision so far."""
+        return self.controller.events

@@ -17,7 +17,10 @@ from .scenario import (
     FailureModel,
     MMPPArrivals,
     PoissonArrivals,
+    Regime,
+    RegimeTrace,
     Scenario,
+    sample_regime_trace,
     task_survival,
 )
 from .coding import (
@@ -50,6 +53,7 @@ __all__ = [
     "theorem_kstar", "Policy", "RetryPolicy", "Scenario", "task_survival",
     "ArrivalProcess", "PoissonArrivals", "DeterministicArrivals",
     "FailureModel", "MMPPArrivals",
+    "Regime", "RegimeTrace", "sample_regime_trace",
     "FractionalRepetitionCode", "decode_blocks", "decode_matrix", "encode_blocks",
     "fractional_repetition_code", "gc_decode_weights", "mds_generator",
     "task_size_gradient", "task_size_linear",

@@ -40,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import ClassVar, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +54,9 @@ from .policy import Policy, RetryPolicy  # noqa: F401  (re-export)
 
 __all__ = [
     "ArrivalProcess", "FailureModel", "PoissonArrivals",
-    "DeterministicArrivals", "MMPPArrivals", "RetryPolicy", "Scenario",
-    "arrival_gap", "job_row_keys", "sample_task_matrix", "task_survival",
+    "DeterministicArrivals", "MMPPArrivals", "Regime", "RegimeTrace",
+    "RetryPolicy", "Scenario", "arrival_gap", "job_row_keys",
+    "sample_regime_trace", "sample_task_matrix", "task_survival",
     "validate_worker_speeds",
 ]
 
@@ -93,6 +94,10 @@ class ArrivalProcess:
     """
 
     rate: float
+
+    #: uniforms each job's gap consumes (the width of
+    #: ``gaps_from_uniform``'s input)
+    uniforms_per_job: ClassVar[int] = 1
 
     def __post_init__(self):
         if self.rate <= 0:
@@ -137,10 +142,19 @@ class ArrivalProcess:
         gaps to one call over [0, N).  A different (equal-in-law) sample
         path from the generator-based ``times``.
         """
+        u = threefry.uniform(job_row_keys(key, start_job, num_jobs),
+                             self.uniforms_per_job)
+        return self.gaps_from_uniform(u, rate, state)
+
+    def gaps_from_uniform(self, u: torch.Tensor, rate=None, state=None):
+        """``gaps_chunk``'s transform: ``u`` is (num_jobs,
+        ``uniforms_per_job``) uniforms in [0, 1), on their device and in
+        their dtype (float32 from ``core.threefry``; the regime traces
+        pass float64 so that the host and the card round alike)."""
         raise NotImplementedError
 
-    def _state(self, key, state):
-        return self.arrival_state0(key.device) if state is None else state
+    def _state(self, device, state):
+        return self.arrival_state0(device) if state is None else state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,10 +166,9 @@ class PoissonArrivals(ArrivalProcess):
         e = self._exponential(generator, tuple(batch) + (num_jobs,), dev)
         return torch.cumsum(e / self._rate(rate, dev), dim=-1)
 
-    def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
-        rks = job_row_keys(key, start_job, num_jobs)
-        e = exponential_from_uniform(threefry.uniform(rks, 1)[:, 0])
-        return e / self._rate(rate, key.device), self._state(key, state)
+    def gaps_from_uniform(self, u, rate=None, state=None):
+        e = exponential_from_uniform(u[:, 0])
+        return e / self._rate(rate, u.device), self._state(u.device, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,10 +185,17 @@ class DeterministicArrivals(ArrivalProcess):
         return steps.expand(tuple(batch) + (num_jobs,)) / \
             self._rate(rate, dev)
 
+    uniforms_per_job: ClassVar[int] = 0
+
     def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
-        ones = torch.ones((int(num_jobs),), dtype=torch.float32,
-                          device=key.device)
-        return ones / self._rate(rate, key.device), self._state(key, state)
+        # nothing to draw: skip the row keys
+        return self.gaps_from_uniform(torch.empty(
+            (int(num_jobs), 0), dtype=torch.float32, device=key.device),
+            rate, state)
+
+    def gaps_from_uniform(self, u, rate=None, state=None):
+        ones = torch.ones((u.shape[0],), dtype=u.dtype, device=u.device)
+        return ones / self._rate(rate, u.device), self._state(u.device, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,17 +232,18 @@ class MMPPArrivals(ArrivalProcess):
             state == 0, self.slow, self.burst)
         return torch.cumsum(e / rates, dim=-1)
 
-    def gaps_chunk(self, key, start_job, num_jobs, rate=None, state=None):
+    uniforms_per_job: ClassVar[int] = 2
+
+    def gaps_from_uniform(self, u, rate=None, state=None):
         # Same per-arrival modulation as ``times``, with the chain's
         # parity carried ACROSS chunks: ``state`` counts flips so far
         # (mod 2), so any chunking of [0, N) walks the identical chain.
-        state = self._state(key, state)
-        u = threefry.uniform(job_row_keys(key, start_job, num_jobs), 2)
+        state = self._state(u.device, state)
         e = exponential_from_uniform(u[:, 0])
         flips = (u[:, 1] < self.switch).to(torch.int64)
         st = (state + torch.cumsum(flips, dim=0)) % 2        # start slow
         c = 0.5 * (1.0 / self.slow + 1.0 / self.burst)
-        rates = self._rate(rate, key.device) * c * torch.where(
+        rates = self._rate(rate, u.device) * c * torch.where(
             st == 0, self.slow, self.burst)
         return e / rates, (state + flips.sum()) % 2
 
@@ -542,3 +563,217 @@ def task_survival(dist: ServiceTime, scaling: Scaling, s: int, t: np.ndarray,
     draws = _additive_mc_sorted_sums(dist, s, str(resolve(device)))
     idx = np.searchsorted(draws, np.atleast_1d(t), side="right")
     return (1.0 - idx / draws.size).reshape(t.shape)
+
+
+# --------------------------------------------------------------------------
+# Regime-switching nonstationary traces (the control loop's world model)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Regime:
+    """One stationary segment of a nonstationary workload.
+
+    ``dist``           the CU service-time law holding for this segment.
+    ``num_steps``      how many job steps the segment lasts.
+    ``delta``          exogenous per-CU deterministic time (``Scenario``
+                       semantics: ShiftedExp carries its own shift and a
+                       contradictory override is rejected).
+    ``worker_speeds``  length-n multiplicative slowdowns — a scheduled
+                       FLEET change (machines degrading / being swapped)
+                       rather than a distribution change.
+    ``arrivals``       the job arrival process (WITH its rate) governing
+                       this segment — a LOAD regime: rate or burstiness
+                       flips are workload changes the service-time channel
+                       cannot see.  Either every regime of a trace carries
+                       arrivals or none does.
+    """
+
+    dist: ServiceTime
+    num_steps: int
+    delta: Optional[float] = None
+    worker_speeds: Optional[Tuple[float, ...]] = None
+    arrivals: Optional[ArrivalProcess] = None
+
+    def __post_init__(self):
+        if int(self.num_steps) < 1:
+            raise ValueError(f"num_steps must be >= 1, got {self.num_steps}")
+        if self.arrivals is not None and \
+                not isinstance(self.arrivals, ArrivalProcess):
+            raise TypeError(
+                f"arrivals must be an ArrivalProcess, got {self.arrivals!r}")
+        if self.delta is not None:
+            if self.delta < 0:
+                raise ValueError(f"delta must be >= 0, got {self.delta}")
+            if isinstance(self.dist, ShiftedExp) and \
+                    float(self.delta) != self.dist.delta:
+                raise ValueError(
+                    "ShiftedExp carries its shift internally "
+                    f"(delta={self.dist.delta}); a Regime delta of "
+                    f"{self.delta} would contradict it")
+
+    def effective_delta(self) -> float:
+        return self.dist.shift if self.delta is None else float(self.delta)
+
+    def scenario(self, scaling: Scaling, n: int, **kwargs) -> Scenario:
+        """This regime as a stationary planning problem."""
+        return Scenario(self.dist, scaling, n, delta=self.delta,
+                        worker_speeds=self.worker_speeds, **kwargs)
+
+
+@dataclasses.dataclass
+class RegimeTrace:
+    """A sampled nonstationary trace: per-regime task-time tables, one per
+    candidate task size s, all derived from one base draw per regime.
+
+    ``tables[r][s]`` is the (num_steps, n) matrix of task times in regime
+    ``r`` for tasks of ``s`` CUs.  Because all s share the regime's base
+    noise (the CRN discipline of ``sample_task_matrix`` /
+    ``cluster_batched``), a controller choosing k and a clairvoyant oracle
+    choosing a different k walk the SAME underlying randomness — regret
+    comparisons are paired, not independently sampled.
+    """
+
+    regimes: Tuple[Regime, ...]
+    scaling: Scaling
+    n: int
+    seed: int
+    s_values: Tuple[int, ...]
+    tables: Tuple[dict, ...]            # per regime: {s: (steps, n) float64}
+    arrivals: Optional[np.ndarray] = None   # (num_steps,) absolute instants
+
+    @property
+    def num_steps(self) -> int:
+        return sum(r.num_steps for r in self.regimes)
+
+    @property
+    def has_arrivals(self) -> bool:
+        """Whether this trace models a QUEUED cluster (jobs arrive at
+        sampled instants and contend for workers) rather than the paper's
+        one-job-at-a-time world."""
+        return self.arrivals is not None
+
+    def boundaries(self) -> List[Tuple[int, int]]:
+        """[start, end) step range of each regime."""
+        out, at = [], 0
+        for r in self.regimes:
+            out.append((at, at + r.num_steps))
+            at += r.num_steps
+        return out
+
+    def regime_index(self) -> np.ndarray:
+        """(num_steps,) index of the regime governing each step."""
+        return np.repeat(np.arange(len(self.regimes)),
+                         [r.num_steps for r in self.regimes])
+
+    def times(self, s: int) -> np.ndarray:
+        """(num_steps, n) task times at task size ``s``, concatenated
+        across regimes."""
+        if s not in self.s_values:
+            raise ValueError(f"s={s} not sampled (have {self.s_values})")
+        return np.concatenate([t[s] for t in self.tables], axis=0)
+
+
+def _trace_uniforms(key: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+    """(rows, width) float64 uniforms from the row keys ``fold_in(key,
+    i)``: the 2^-24-grid float32 uniforms of ``core.threefry``, widened
+    so that every transform computes in float64 and rounds once to the
+    draw's float32 — the same float32 on the host and on the card."""
+    return threefry.uniform(job_row_keys(key, 0, rows), width).double()
+
+
+def sample_regime_trace(
+    regimes: Sequence[Regime],
+    scaling: Scaling,
+    n: int,
+    seed: int = 0,
+    s_values: Optional[Sequence[int]] = None,
+    device=DEFAULT_DEVICE,
+) -> RegimeTrace:
+    """Sample a piecewise-stationary trace of per-worker task times.
+
+    For every regime ONE base noise draw is taken on ``device`` (key =
+    ``fold_in(threefry.key(seed), regime_index)``, each step's row from
+    ``fold_in`` of that key with the step index) and transformed per task
+    size exactly as the batched engines do: server-/data-dependent tables
+    reuse one float32 noise draw scaled per s, additive tables are a
+    float32 running sum over a (steps, n, s_max) CU table sliced per s.
+    Fleet changes (``Regime.worker_speeds``) multiply the regime's
+    tables.  The tables are float64 numpy on the host.
+
+    The uniforms are exact on every device and each transform rounds once
+    from float64 to the draw's float32, and every sum runs in a fixed
+    order (the CU running sum as elementwise adds, the arrival prefix sum
+    on the host), so a trace drawn on the card equals the one drawn on
+    the host.
+
+    ``s_values`` defaults to the divisors of n — every legal task size, so
+    any policy the controller might pick (and the clairvoyant per-regime
+    oracle) can be scored on the same trace.  Memory is
+    O(steps * n * len(s_values)) (plus s_max CU draws for additive).
+
+    When the regimes carry ``arrivals`` (all of them must, or none), one
+    absolute arrival instant per step is sampled as well — each regime's
+    process draws its own gap stream under a dedicated key
+    (``fold_in(key, 1_000_003 + regime_index)``, disjoint from the service
+    keys, so service tables are bit-identical with or without arrivals)
+    and the instants continue from where the previous regime ended,
+    giving one monotone timeline across the whole trace.
+    """
+    regimes = tuple(regimes)
+    if not regimes:
+        raise ValueError("need at least one regime")
+    with_arrivals = [r.arrivals is not None for r in regimes]
+    if any(with_arrivals) and not all(with_arrivals):
+        raise ValueError(
+            "either every regime carries an arrival process or none does "
+            f"(got arrivals on regimes {[i for i, w in enumerate(with_arrivals) if w]})")
+    s_vals = tuple(divisors(n)) if s_values is None \
+        else tuple(sorted({int(s) for s in s_values}))
+    if any(s < 1 for s in s_vals):
+        raise ValueError(f"task sizes must be >= 1, got {s_vals}")
+    key = threefry.key(seed, device)
+    tables = []
+    for r_idx, reg in enumerate(regimes):
+        k_r = threefry.fold_in(key, r_idx)
+        steps = reg.num_steps
+        d = reg.effective_delta()
+        if scaling is Scaling.ADDITIVE:
+            s_max = max(s_vals)
+            u = _trace_uniforms(k_r, steps, n * s_max).view(steps, n, s_max)
+            draws = reg.dist.from_uniform(u).to(torch.float32)
+            csum = torch.empty_like(draws)
+            csum[..., 0] = draws[..., 0]
+            for j in range(1, s_max):          # one add per CU, in order
+                csum[..., j] = csum[..., j - 1] + draws[..., j]
+            csum = csum.cpu().numpy().astype(np.float64)
+            per_s = {s: csum[..., s - 1] for s in s_vals}
+        else:
+            z = reg.dist.noise_from_uniform(_trace_uniforms(k_r, steps, n))
+            z = z.to(torch.float32).cpu().numpy().astype(np.float64)
+            if scaling is Scaling.SERVER_DEPENDENT:
+                per_s = {s: d + s * z for s in s_vals}
+            else:                                   # data-dependent
+                per_s = {s: s * d + z for s in s_vals}
+        if reg.worker_speeds is not None:
+            speeds = np.asarray(
+                validate_worker_speeds(reg.worker_speeds, n), np.float64)
+            per_s = {s: t * speeds[None, :] for s, t in per_s.items()}
+        tables.append(per_s)
+    arrivals = None
+    if all(with_arrivals):
+        segs, t_end = [], 0.0
+        for r_idx, reg in enumerate(regimes):
+            # a key stream disjoint from the service fold_in(key, r_idx)
+            # (r_idx stays small), so adding arrivals to a trace cannot
+            # perturb its service tables
+            a_key = threefry.fold_in(key, 1_000_003 + r_idx)
+            gaps, _ = reg.arrivals.gaps_from_uniform(_trace_uniforms(
+                a_key, reg.num_steps, reg.arrivals.uniforms_per_job))
+            gaps = gaps.to(torch.float32).cpu().numpy()
+            seg = np.cumsum(gaps, dtype=np.float32).astype(np.float64)
+            segs.append(t_end + seg)
+            t_end = float(segs[-1][-1])
+        arrivals = np.concatenate(segs)
+    return RegimeTrace(regimes=regimes, scaling=scaling, n=n, seed=int(seed),
+                       s_values=s_vals, tables=tuple(tables),
+                       arrivals=arrivals)

@@ -201,6 +201,8 @@ def cached_sweep(scenario: Scenario, loads: Sequence[float],
          None if failures is None else int(failures.max_events),
          retry, None if lanes is None else lanes.signature))
 
+    rec = _trace.active()
+    t_rec = rec.now() if rec is not None else 0.0
     t0 = time.perf_counter()
     out = _host(_sweep_core(
         generator(seed, dev), np.asarray(padded, np.float32), speeds,
@@ -210,6 +212,13 @@ def cached_sweep(scenario: Scenario, loads: Sequence[float],
         failures, retry, *_lane_args(lanes)))
     _record_surface_call(warm, (time.perf_counter() - t0) * 1e3,
                          "cached_sweep")
+    if rec is not None:
+        # every engine call names its device on the trace (the fleet and
+        # batched engines do too), so a run report shows where the
+        # surfaces ran
+        rec.event("sweep", name="cached", dur=rec.now() - t_rec,
+                  n=n, num_jobs=int(num_jobs), reps=int(reps),
+                  lanes=len(padded) * len(ks), device=str(dev))
 
     # trim the padded lanes before aggregation: lanes are independent and
     # share their draws, so the surviving cells are the unpadded call's
