@@ -106,14 +106,38 @@ Phases, none of whose failures is caught (any fault exits non-zero):
    - the twins of ``examples/adaptive_load.py`` and
      ``examples/serve_slo.py`` at their default sizes (the second on the
      chunked fleet engine).
-9. One JSON line listing every kernel with its launches and times; the
-   last line is the device record.
+9. Coded training at full width (``launch.train``, the training route of
+   ``flash_attention``):
+   - the lse-writing forward against its plain version at the qwen3-0.6b
+     prefill shape (B 2 x S 4096, bf16), the training shape (B 16 x
+     S 256, bf16) and a ragged fp32 shape: o within phase 3's tolerance,
+     lse within 1e-4 (fp32) / 1e-2 (bf16); a planted lse fault (base-2
+     units) must fail; the forward's times with and without lse in
+     turns beside the plain version's and SDPA's;
+   - ``FlashTrain``'s gradients (the plain-PyTorch recompute backward)
+     against autograd through the plain fp32 attention, 1e-4 of
+     max |grad|, and the backward's time at the training shape;
+   - the coded gradient at TINY in fp32 under a straggler mask against
+     the plain gradient over the unique rows (tests/test_runtime.py's
+     tolerances);
+   - ``python -m repro_torch.launch.train`` for qwen3-0.6b at full width
+     and depth (751.6 M fp32 parameters, bf16 compute, remat full),
+     bimodal:10:0.2 stragglers (c = 2, 16 coded rows x 256 tokens), 8
+     steps and a checkpoint after the last: each step's loss, grad norm,
+     stragglers dropped, barrier fallbacks and CUDA-event ms; the median
+     warm step, tokens/s and peak device memory (under half the card);
+     56 kernel launches a step, counted; a falling, finite loss; the
+     checkpoint restored onto the card bit for bit; one more step under
+     ``torch.profiler``.
+10. One JSON line listing every kernel with its launches and times; the
+    last line is the device record.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import re
 import runpy
 import shutil
@@ -244,6 +268,35 @@ FLEET_P99_SEEDS = tuple(range(1, 9))
 FLEET_CARD_RTOL, FLEET_CARD_ATOL = 1e-4, 1e-5
 # examples/fleet_scale.py: its day/night MMPP at n 10^4, 10^4 jobs
 FLEET_DIURNAL_JOBS, FLEET_DIURNAL_FRACS = 10_000, (0.05, 0.5, 0.85)
+# phase 9: the lse-writing forward at the prefill shape, the training
+# shape (16 coded rows x 256 tokens of qwen3-0.6b) and a ragged fp32
+# shape; lse within 1e-4 absolute in fp32 and 1e-2 in bf16 (both sides
+# sum fp32 exponentials; bf16 inputs move the scores by their own
+# rounding, not the lse's), o within phase 3's tolerances
+TRAIN_FLASH_SHAPES = [(FLASH_MAIN[0], torch.bfloat16, True),
+                      ((16, 256, 256, 16, 8, 128), torch.bfloat16, True),
+                      ((2, 200, 200, 4, 2, 32), torch.float32, True)]
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the recorded time of the forward without lse at the prefill shape, from
+# before the kernel could write lse (PERF.md section 6)
+FLASH_PREFILL_RECORDED_MS = 0.5733
+# FlashTrain's gradients against autograd through the plain fp32
+# attention: 1e-4 of max |grad| (fp32 on both sides, other summation
+# orders)
+TRAIN_BWD_SHAPE, TRAIN_BWD_TOL = (2, 256, 256, 16, 8, 128), 1e-4
+# the coded gradient at TINY in fp32 against the plain gradient over the
+# unique rows: tests/test_runtime.py:38-62's case (8, 2) and tolerances
+CODED_CASE, CODED_RTOL, CODED_ATOL = (8, 2, [1, 1, 0, 1, 1, 0, 1, 1]), \
+    5e-4, 1e-5
+# the slice at full width: launch.train for qwen3-0.6b, c = 2 planned
+# from bimodal:10:0.2 (16 coded rows x 256 tokens), 8 steps, a checkpoint
+# after the last; remat "full" launches the flash kernel twice a layer a
+# step (forward, then its recompute in the backward)
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--scale", "full", "--seq-len", "256",
+              "--unique-batch", "8", "--n-workers", "8",
+              "--straggle", "bimodal:10:0.2", "--steps", "8",
+              "--ckpt-every", "8", "--replan-every", "4", "--device", "cuda"]
+TRAIN_STEPS, TRAIN_LAUNCHES_PER_STEP = 8, 56
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -1576,6 +1629,275 @@ def control_phase(seed: int) -> None:
     assert not missed, missed
 
 
+def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
+                      plant: bool = False) -> dict:
+    """The lse-writing forward against its plain version: o within phase
+    3's tolerance, lse within LSE_TOL; then the times of the forward
+    with lse, without it, of the plain version and of SDPA in turns.
+    ``plant``: a planted lse fault (base-2 units, the wgmma schedule's
+    own, without the ln 2) must fail the check."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     flash_attention,
+                                                     flash_attention_lse)
+    B, Sq, Sk, H, KV, D = shape
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    out, lse = flash_attention_lse(q, k, v, causal)
+    ref, ref_lse = attention_lse_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and lse.shape == (B, H, Sq)
+    assert lse.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    atol, rtol = FLASH_TOL[dtype]
+    o_ratio = excess(out, ref, atol, rtol)
+    lse_err = float((lse - ref_lse).abs().max())
+    ok = o_ratio <= 1 and lse_err <= LSE_TOL[dtype]
+    if plant:
+        fault = float((ref_lse / math.log(2) - ref_lse).abs().max())
+        print(f"    planted fault, lse in base-2 units: max |lse-ref| = "
+              f"{fault:.3g} (limit {LSE_TOL[dtype]:g})  "
+              f"{'caught' if fault > LSE_TOL[dtype] else 'MISSED'}",
+              flush=True)
+        assert fault > LSE_TOL[dtype], "the lse tolerance misses a fault"
+    del out, lse, ref, ref_lse
+    fns = {"plain": lambda: attention_lse_ref(q, k, v, causal),
+           "kernel": lambda: flash_attention_lse(q, k, v, causal),
+           "no_lse": lambda: flash_attention(q, k, v, causal)}
+    if Sq == Sk or not causal:
+        fns["library"] = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+    order = [n for n in ("plain", "no_lse", "kernel", "library", "library",
+                         "kernel", "no_lse", "plain") if n in fns]
+    t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
+                                 "no_lse": reps, "library": reps})
+    pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) / 2 if causal else Sq * Sk
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + B * H * Sq * 4
+    ops = 4.0 * B * H * pairs * D
+    b_ms, b_by = roofline(nbytes, ops, dtype)
+    library = t.get("library")
+    sdpa = f"{library:.4f} ms" if library is not None else "n/a"
+    print(f"  flash+lse B={B:2d} Sq={Sq:4d} Sk={Sk:4d} H={H:2d} KV={KV} "
+          f"D={D:3d} {'causal' if causal else 'full  '} "
+          f"{str(dtype)[6:]:8s} o /limit {o_ratio:.3f} (tol {atol:g} abs + "
+          f"{rtol:g} rel), max|lse-ref| {lse_err:.3e} (tol "
+          f"{LSE_TOL[dtype]:g})  kernel with lse {t['kernel']:.4f} ms, "
+          f"without {t['no_lse']:.4f} ms  plain {t['plain']:.4f} ms  sdpa "
+          f"{sdpa}  bound {b_ms:.4f} ms ({b_by}; "
+          f"{rate(t['kernel'], nbytes, ops, b_ms, b_by)})  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return dict(max_abs_err=lse_err, ok=ok, ms=t["kernel"],
+                no_lse_ms=t["no_lse"], plain_ms=t["plain"],
+                library_ms=library, bound_ms=b_ms, bound_by=b_by)
+
+
+def training_phase(seed: int) -> dict:
+    """Phase 9: the coded training slice on the card.  Returns the row of
+    the training route of flash_attention (its time at the training shape
+    and its launches in the full-width run)."""
+    import numpy as np
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.coding import gc_decode_weights
+    from repro_torch.data import (DataConfig, coded_batch,
+                                  decode_example_weights, synthetic_batch)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_lse)
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.layers import FlashTrain, _flash_train_bwd
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import CodedStepConfig, weighted_loss_fn
+    phase("9. coded training at full width")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+
+    # the lse-writing forward against its plain version
+    rows = []
+    for i, (shape, dtype, causal) in enumerate(TRAIN_FLASH_SHAPES):
+        rows.append(flash_lse_compare(shape, dtype, causal, gen,
+                                      reps=5 if i == 0 else 10, plant=i == 0))
+    assert all(r["ok"] for r in rows), "flash+lse disagrees with its plain version"
+    prefill, train_row = rows[0], rows[1]
+    print(f"  prefill shape: forward without lse {prefill['no_lse_ms']:.4f} "
+          f"ms, with lse {prefill['ms']:.4f} ms (recorded before the lse "
+          f"output: {FLASH_PREFILL_RECORDED_MS} ms)", flush=True)
+
+    # FlashTrain's backward against autograd through the plain version
+    B, S, _, H, KV, D = TRAIN_BWD_SHAPE
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
+               for h in (H, KV, KV))
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda a, b, c: FlashTrain.apply(a, b, c, True, 128)[0],
+               lambda a, b, c: attention_ref(a, b, c, True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+    worst = 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), *grads):
+        err = float((g - r).abs().max()) / float(r.abs().max())
+        worst = max(worst, err)
+        print(f"  FlashTrain {name} (B {B}, S {S}, H {H}, KV {KV}, D {D}, "
+              f"fp32, causal, block_kv 128) against autograd through the "
+              f"plain version: max|diff| / max|grad| {err:.3e} (limit "
+              f"{TRAIN_BWD_TOL:g})", flush=True)
+    assert worst <= TRAIN_BWD_TOL, worst
+    shape = TRAIN_FLASH_SHAPES[1][0]
+    qb, kb, vb = (torch.randn((shape[0], shape[1], h, shape[5]),
+                              generator=gen, device="cuda").bfloat16()
+                  for h in (shape[3], shape[4], shape[4]))
+    ob, lseb = flash_attention_lse(qb, kb, vb, True)
+    bwd_ms = time_ms(lambda: _flash_train_bwd(qb, kb, vb, ob, lseb,
+                                              torch.ones_like(ob), True,
+                                              1024), reps=5)
+    print(f"  plain-PyTorch backward at the training shape (bf16 in, fp32 "
+          f"math): {bwd_ms:.4f} ms a layer (CUDA events); the forward with "
+          f"lse {train_row['ms']:.4f} ms", flush=True)
+    del q, k, v, dout, grads, qb, kb, vb, ob, lseb
+
+    # the coded gradient on the card at TINY, fp32
+    n, c, alive = CODED_CASE
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=257,
+                      flash_block_kv=16, remat="none",
+                      compute_dtype="float32", param_dtype="float32")
+    step_cfg = CodedStepConfig(n_workers=n, c=c,
+                               unique_batch=2 * (n // c))
+    data_cfg = DataConfig(vocab_size=257, seq_len=16,
+                          global_batch=step_cfg.unique_batch)
+    code = step_cfg.code
+    toks_c, labs_c = coded_batch(data_cfg, 0, code)
+    a = gc_decode_weights(code, np.asarray(alive, bool))
+    w = decode_example_weights(code, a, step_cfg.per_worker_rows,
+                               step_cfg.unique_batch)
+    parts = [synthetic_batch(data_cfg, 0, part=j, num_parts=code.num_groups)
+             for j in range(code.num_groups)]
+    toks_u = np.concatenate([p[0] for p in parts])
+    labs_u = np.concatenate([p[1] for p in parts])
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), trainable=True)
+    lf = weighted_loss_fn(cfg)
+    cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+    flash_attention.launches = 0
+    g_coded = torch.autograd.grad(
+        lf(model, cuda(toks_c), cuda(labs_c), cuda(w)), model.parameters())
+    g_plain = torch.autograd.grad(
+        lf(model, cuda(toks_u), cuda(labs_u),
+           torch.ones(len(toks_u), device="cuda")), model.parameters())
+    assert flash_attention.launches == 2 * cfg.num_layers
+    close = all(torch.allclose(x, y, rtol=CODED_RTOL, atol=CODED_ATOL)
+                for x, y in zip(g_coded, g_plain))
+    diff = max(float((x - y).abs().max()) for x, y in zip(g_coded, g_plain))
+    print(f"  coded gradient (n {n}, c {c}, alive {alive}, TINY fp32, the "
+          f"flash kernel {flash_attention.launches} launches) against the "
+          f"plain gradient over the unique rows: max|diff| {diff:.3e} "
+          f"(rtol {CODED_RTOL:g}, atol {CODED_ATOL:g})  "
+          f"{'ok' if close else 'MISMATCH'}", flush=True)
+    assert close
+    del model, g_coded, g_plain
+
+    # the slice at full width, through its entry point
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = TRAIN_ARGV + ["--ckpt-dir", str(ckpt_dir)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    run = train.main(argv)
+    launches = flash_attention.launches
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    n_params = sum(p.numel() for p in run.params.parameters())
+    hist = run.history
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} lr {h['lr']:.3e} c {h['c']} coded rows "
+              f"{h['coded_rows']} dropped {h['dropped']} barrier fallbacks "
+              f"{h['fallbacks']} {h['ms']:.2f} ms (CUDA events)", flush=True)
+    warm = sorted(h["ms"] for h in hist[1:])
+    step_ms = warm[len(warm) // 2]
+    rows_ = hist[-1]["coded_rows"]
+    tokens = rows_ * 256
+    print(f"  {run.cfg.name}: {n_params / 1e6:.1f} M parameters (fp32 "
+          f"master, {run.cfg.compute_dtype} compute, remat "
+          f"{run.cfg.remat}); median warm step {step_ms:.2f} ms = "
+          f"{tokens / step_ms * 1e3:.0f} coded tokens/s "
+          f"({tokens // hist[-1]['c'] / step_ms * 1e3:.0f} unique); "
+          f"{TRAIN_STEPS} steps with the checkpoint in {train_s:.2f} s (host "
+          f"clock); peak device memory {peak_gb:.2f} GB of {total_gb:.1f} GB",
+          flush=True)
+    print(f"  flash_attention launches in the run: {launches} "
+          f"({launches / TRAIN_STEPS:g} a step; {run.cfg.num_layers} layers "
+          f"x forward + recompute)", flush=True)
+    assert launches == TRAIN_LAUNCHES_PER_STEP * TRAIN_STEPS, launches
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert peak_gb < total_gb / 2, (peak_gb, total_gb)
+
+    # the checkpoint written after step 8, restored onto the card
+    t0 = time.perf_counter()
+    latest = ckpt.latest_step(str(ckpt_dir))
+    assert latest == TRAIN_STEPS, latest
+    restored, manifest = ckpt.restore(str(ckpt_dir), latest,
+                                      {"p": run.params, "o": run.opt_state},
+                                      device="cuda")
+    same = restored["o"].step == run.opt_state.step and all(
+        torch.equal(restored["p"][name], p)
+        for name, p in run.params.named_parameters()) and all(
+        torch.equal(restored["o"][i][name], t)
+        for i in (1, 2) for name, t in run.opt_state[i].items())
+    size_gb = sum(f.stat().st_size for f in
+                  (ckpt_dir / f"step_{latest:09d}").iterdir()) / 1e9
+    print(f"  checkpoint step {latest}: {manifest['num_leaves']} leaves, "
+          f"{size_gb:.2f} GB, restored onto the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock): bit for bit "
+          f"{same}", flush=True)
+    assert same
+    del restored
+    shutil.rmtree(ckpt_dir)
+
+    # one warm step split by CUDA events: forward and loss, backward
+    # (the layers' recompute and the plain attention backward in it),
+    # AdamW; then one more under the profiler
+    tr = run.trainer
+    toks, labs = coded_batch(tr.data_cfg, TRAIN_STEPS, tr.step_cfg.code)
+    coef = tr.decode_coefficients(tr.gather_alive(TRAIN_STEPS))
+    w = torch.from_numpy(decode_example_weights(
+        tr.step_cfg.code, coef, tr.step_cfg.per_worker_rows,
+        tr.step_cfg.unique_batch)).cuda()
+    leaves = dict(run.params.named_parameters())
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    loss = weighted_loss_fn(run.cfg)(run.params, cuda(toks), cuda(labs), w)
+    events[1].record()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    events[2].record()
+    adamw.apply_updates(tr.opt_cfg, run.params, dict(zip(leaves, grads)),
+                        run.opt_state)
+    events[3].record()
+    torch.cuda.synchronize()
+    split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    print(f"  one warm step by part (CUDA events): forward + loss "
+          f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW "
+          f"{split[2]:.2f} ms", flush=True)
+    del loss, grads, leaves
+    profile_call("training step", lambda: run.trainer.run_step(
+        run.params, run.opt_state, TRAIN_STEPS + 1))
+    del run
+    torch.cuda.empty_cache()
+    print(f"  phase 9 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return dict(train_row, launches=launches)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1591,8 +1913,9 @@ def main() -> None:
     queueing_phase(args.seed)
     fleet_phase(args.seed)
     control_phase(args.seed)
+    train_flash = training_phase(args.seed)
 
-    phase("9. kernels")
+    phase("10. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]
@@ -1617,6 +1940,16 @@ def main() -> None:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "flash_attention[qwen3-0.6b training forward with lse "
+                "B=16,S=256,H=16,KV=8,D=128,bf16,causal]",
+        "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": train_flash["launches"],
+        "max_abs_err": train_flash["max_abs_err"], "ms": train_flash["ms"],
+        "plain_ms": train_flash["plain_ms"],
+        "bound_ms": train_flash["bound_ms"],
+        "bound_by": train_flash["bound_by"],
+        "library_ms": train_flash["library_ms"]})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@
 
 Only the architectures whose serving path is ported have a config module
 here: ``qwen3-0.6b`` (dense) and ``mamba2-1.3b`` (pure SSM).  The MoE,
-hybrid and embedding-input families come with the training slice.
+hybrid and embedding-input families are ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
-    remat: str = "full"              # none | full (training only; unused here)
+    remat: str = "full"              # none | full | dots (training only; dots
+                                     # is not ported and raises)
     # attention implementation name and flash block sizes; the port's
     # full-sequence attention is always its flash kernel, and only the
     # blockwise decode path (kv_len) reads flash_block_kv

@@ -28,7 +28,8 @@ and ``replay`` are given (default ``"cuda"``).  The typed front door is
 ``repro_torch.api.AdaptivePlanner``.
 """
 from .controller import (ControlEvent, ControllerConfig,  # noqa: F401
-                         HedgedServeActuator, RedundancyController)
+                         HedgedServeActuator, RedundancyController,
+                         TrainerActuator)
 from .detector import (DriftDetector, DriftEvent,  # noqa: F401
                        FailureDriftDetector, LoadDriftDetector,
                        SojournDriftDetector)
@@ -46,5 +47,5 @@ __all__ = [
     "LoadDriftDetector", "LossModel", "LossRateEstimator", "OnlineSelector",
     "ParetoEstimator", "RedundancyController", "ReplayResult",
     "ShiftedExpEstimator", "SojournDriftDetector", "SojournEstimator",
-    "SojournModel", "fit_window", "replay",
+    "SojournModel", "TrainerActuator", "fit_window", "replay",
 ]

@@ -24,7 +24,7 @@ Dataflow (DESIGN.md §7):
                         queueing surface at the estimated rate, run on
                         the objective's device (the card by default)
                     --> hysteresis + switching-cost gate
-                    --> actuators (hedged serving, ...)
+                    --> actuators (coded training, hedged serving)
 
 Decisions are pure functions of the sample stream and the configuration —
 no wall-clock, no internal RNG — so a replayed trace reproduces the exact
@@ -297,6 +297,34 @@ class Actuator:
 
     def apply(self, policy: Policy, model: FittedModel) -> None:
         raise NotImplementedError
+
+
+class TrainerActuator(Actuator):
+    """Re-plans a ``CodedTrainer`` in place: swaps its step config to the
+    new policy (the step_cfg setter rebuilds the step), rounding the
+    unique batch by the shared ``elastic.round_unique_batch`` contract."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        # round from the ORIGINAL unique batch on every apply — rounding
+        # from the current (already-rounded) config would ratchet the
+        # global batch monotonically upward across re-plans and never
+        # restore it when a compatible k returns
+        self.base_unique_batch = int(trainer.step_cfg.unique_batch)
+        self.adjustments: List[int] = []    # logged unique-batch roundings
+
+    def apply(self, policy: Policy, model: FittedModel) -> None:
+        from ..runtime.coded_step import CodedStepConfig
+        from ..runtime.elastic import round_unique_batch
+        rounded, adj = round_unique_batch(self.base_unique_batch,
+                                          policy.num_groups)
+        cfg = CodedStepConfig.from_policy(policy, unique_batch=rounded)
+        if cfg == self.trainer.step_cfg:
+            return    # actuators fire on EVERY commit; don't rebuild the
+                      # step when the config is unchanged
+        if adj:
+            self.adjustments.append(adj)
+        self.trainer.step_cfg = cfg
 
 
 class HedgedServeActuator(Actuator):

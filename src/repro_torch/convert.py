@@ -21,9 +21,13 @@ imports ``repro``:
   * lists, tuples and other dictionaries are converted element-wise;
     numbers, strings and None pass through.
 
-``params_to_port(cfg, params, device)`` takes the reference's model
-parameters (``models.api.init_params``'s pytree, as numpy arrays or the
-reference's arrays) and returns this package's model module holding them.
+``params_to_port(cfg, params, device, trainable)`` takes the reference's
+model parameters (``models.api.init_params``'s pytree, as numpy arrays or
+the reference's arrays) and returns this package's model module holding
+them; ``trainable`` makes every parameter require a gradient.
+``opt_state_to_port(opt_state, device)`` takes the reference's AdamW
+state (``optim.adamw.OptState``: step, mu, nu) and returns the port's:
+the step as an int and the moments by parameter name.
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ from .core.policy import Policy, RetryPolicy
 from .core.scenario import (DeterministicArrivals, FailureModel,
                             MMPPArrivals, PoissonArrivals, Scenario)
 from .models.api import model_class
+from .optim.adamw import OptState
 
-__all__ = ["params_to_port", "to_port"]
+__all__ = ["opt_state_to_port", "params_to_port", "to_port"]
 
 _RECORDS = (ShiftedExp, Pareto, BiModal, Scenario, Policy, RetryPolicy, Plan,
             FailureModel, PoissonArrivals, DeterministicArrivals,
@@ -112,15 +117,17 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE):
+def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE,
+                   trainable: bool = False):
     """The model module of ``cfg``'s family holding the reference's
     parameter pytree ``params`` (``{"layers": {...}, "embed": ...}``).
 
     Every name of the pytree must be a parameter of the module and every
     parameter a name of the pytree, with the same shape; anything else
-    raises.  Values keep their dtype.
+    raises.  Values keep their dtype.  ``trainable``: the parameters
+    require gradients (the training path).
     """
-    model = model_class(cfg)(cfg, device=resolve(device))
+    model = model_class(cfg)(cfg, device=resolve(device), trainable=trainable)
     theirs = _flatten(params)
     ours = dict(model.named_parameters())
     missing = sorted(set(ours) - set(theirs))
@@ -137,3 +144,12 @@ def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE):
                              f"{tuple(p.shape)}")
         p.data = t
     return model
+
+
+def opt_state_to_port(opt_state, device=DEFAULT_DEVICE) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` as the port's: ``step``
+    an int, ``mu`` and ``nu`` dictionaries by the port's parameter names
+    (``layers.wq``, ``embed``, ...) of tensors on ``device``."""
+    return OptState(step=int(np.asarray(opt_state.step)),
+                    mu=to_port(_flatten(opt_state.mu), device),
+                    nu=to_port(_flatten(opt_state.nu), device))

@@ -2,6 +2,7 @@
 //
 //   o = softmax(q k^T / sqrt(D) [causal]) v     q (B,Sq,H,D), k/v (B,Sk,KV,D),
 //                                               o (B,Sq,H,D) in q's dtype
+//   lse = m + log(l)                            (B,H,Sq) fp32, when asked for
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention (Pallas body `_kernel`).  Same function: online softmax
@@ -65,6 +66,16 @@
 // tile (64 keys) and the probabilities of the tile (115 KB at D = 128, rows
 // padded by one float against bank conflicts).
 //
+// The row log-sum-exp.  The training path's backward (models/layers.py's
+// FlashTrain, the port of the reference's _flash_train) rebuilds each block's
+// probabilities from it, so with a non-null `lse` both schedules also write
+// m + log(max(l, 1e-30)) per row in the scaled units of the scores, the lse
+// of the reference's _flash_fwd_scan (models/layers.py:243-244): one fp32
+// store a row after the KV loop, by one lane of the row's lanes.  The wgmma
+// schedule keeps m unscaled and sums exp2, so it writes
+// (m * scale * log2(e) + log2(l)) * ln(2).  With a null `lse` (prefill)
+// nothing else changes.
+//
 // Launch: on the caller's stream, no allocation, no synchronisation.  The
 // caller passes the scale (1/sqrt(D) rounded once to fp32, as the reference
 // rounds it).  The entry points return cudaGetLastError() after the launch.
@@ -98,7 +109,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int Sq, int Sk, int H, int KV, int causal, float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+          int causal, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 1;       // padded row of the q and k tiles
   constexpr int LP = BK + 1;      // padded row of the probability tile
@@ -225,6 +237,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(denom);
     T* row = o + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j] / denom);
@@ -232,16 +245,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <int D>
-int launch_d(const float* q, const float* k, const float* v, float* o, int Sq, int Sk,
-             int H, int KV, int B, int causal, float scale, cudaStream_t stream) {
+int launch_d(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
+             int Sk, int H, int KV, int B, int causal, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<float, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<float, D><<<grid, kThreads, bytes, stream>>>(q, k, v, o, Sq, Sk, H, KV, causal,
-                                                         scale);
+  flash_fwd<float, D><<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, Sq, Sk, H, KV,
+                                                         causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -260,6 +273,7 @@ constexpr int BKV = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V tiles in flight
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -433,8 +447,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int val
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: 128 registers
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int B, int Sq, int Sk,
-                int H, int KV, int causal, float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                int B, int Sq, int Sk, int H, int KV, int causal, float scale_log2) {
   static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, at most 128");
   constexpr uint32_t kTileKV = BKV * D * sizeof(bf16);
   constexpr uint32_t kRowGroup = 16 * D;  // bytes between 8-row groups of a tile
@@ -590,6 +604,8 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = row0 + 8 * r;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && quad == 0)
+      lse[((long long)b * H + h) * Sq + qi] = (m[r] * scale_log2 + log2f(denom)) * kLn2;
     bf16* row = o + (((long long)b * Sq + qi) * H + h) * D + 2 * quad;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -599,16 +615,16 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int Sq, int Sk, int H,
-             int KV, int B, int causal, float scale, cudaStream_t stream) {
+int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int Sq,
+             int Sk, int H, int KV, int B, int causal, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((Sq + BQ - 1) / BQ) * H * B;
-  flash_fwd_wgmma<D><<<blocks, kThreads, bytes, stream>>>(q, k, v, o, B, Sq, Sk, H, KV,
-                                                          causal, scale * kLog2e);
+  flash_fwd_wgmma<D><<<blocks, kThreads, bytes, stream>>>(q, k, v, o, lse, B, Sq, Sk, H,
+                                                          KV, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -618,35 +634,37 @@ int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int Sq, int S
 
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
-                        int Sq, int Sk, int H, int KV, int D, int causal, float scale,
-                        void* stream) {
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int B, int Sq, int Sk, int H, int KV, int D, int causal,
+                        float scale, void* stream) {
   const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
               *vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(o);
+  float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return simt::launch_d<16>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 32: return simt::launch_d<32>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 64: return simt::launch_d<64>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 128: return simt::launch_d<128>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
+    case 16: return simt::launch_d<16>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 32: return simt::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 64: return simt::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 128: return simt::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                         int Sq, int Sk, int H, int KV, int D, int causal, float scale,
-                         void* stream) {
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int B, int Sq, int Sk, int H, int KV, int D, int causal,
+                         float scale, void* stream) {
   using wg::bf16;
   const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
              *vv = static_cast<const bf16*>(v);
   bf16* oo = static_cast<bf16*>(o);
+  float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return wg::launch_d<16>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 32: return wg::launch_d<32>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 64: return wg::launch_d<64>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
-    case 128: return wg::launch_d<128>(qq, kk, vv, oo, Sq, Sk, H, KV, B, causal, scale, s);
+    case 16: return wg::launch_d<16>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 32: return wg::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 64: return wg::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 128: return wg::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

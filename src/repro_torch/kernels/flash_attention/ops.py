@@ -2,14 +2,16 @@
 
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
 the Hopper kernel (``kernel.py``), after the checks below, or raises.
-``flash_attention.launches`` counts the kernel launches.
+``flash_attention_lse`` is the same launch that also writes the rows'
+log-sum-exp.  ``flash_attention.launches`` counts the kernel launches of
+both.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel
-from .ref import attention_ref
+from .ref import attention_lse_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _INT_MAX = 2 ** 31 - 1
@@ -45,6 +47,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(the kernel copies 16-byte pieces of each row)")
 
 
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         with_lse: bool):
+    """(o, lse or None): the plain version for CPU tensors, else the
+    kernel after the checks, counted in ``flash_attention.launches``."""
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"q, k and v must be on one device, got "
+                         f"{sorted(map(str, devices))}")
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_lse_ref(q, k, v, causal)
+        return attention_ref(q, k, v, causal), None
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, causal)
+    o = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        b, sq, h, _ = q.shape
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        kernel.launch(q, k, v, o, causal, lse)
+    flash_attention.launches += 1
+    return o, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in ``q.dtype``.
@@ -52,20 +80,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     All three tensors on the CPU: the plain version.  All three on one CUDA
     device: the kernel.  Anything else raises.
     """
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k and v must be on one device, got "
-                         f"{sorted(map(str, devices))}")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check(q, k, v, causal)
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        kernel.launch(q, k, v, o, causal)
-    flash_attention.launches += 1
-    return o
+    return _run(q, k, v, causal, with_lse=False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """``flash_attention``'s output and the rows' log-sum-exp (B, H, Sq)
+    fp32, from the same launch (the training path's forward).  Counted in
+    ``flash_attention.launches``."""
+    return _run(q, k, v, causal, with_lse=True)
 
 
 flash_attention.launches = 0

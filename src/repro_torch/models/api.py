@@ -1,13 +1,17 @@
 """Family dispatch: one model API over the ported architectures (a port of
-the JAX package's ``models/api.py``, serving path).
+the JAX package's ``models/api.py``).
 
-    init_params / forward / init_cache / decode_step / padded_vocab
+    init_params / param_shapes / forward / train_forward / loss_fn
+    init_cache / decode_step / padded_vocab
 
 ``transformer`` serves the dense family, ``ssm_lm`` the pure-SSM family.
-The other families (MoE, hybrid, encoder, vlm, audio) come with the
-training slice and raise here.  ``forward`` is the body of the reference's
-prefill cell (``launch/steps.py::build_prefill_cell``) and ``decode_step``
-the body of its ``serve_step``.
+The other families (MoE, hybrid, encoder, vlm, audio) are ROADMAP Queue 1
+items (MoE, zamba2 + sliding window, frontends) and raise here.
+``forward`` is the body of the reference's prefill cell
+(``launch/steps.py::build_prefill_cell``) and takes no gradient;
+``train_forward`` and ``loss_fn`` are the reference's differentiable
+``forward`` and ``loss_fn`` (dense family; the SSM family raises);
+``decode_step`` is the body of its ``serve_step``.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ _FAMILIES = {"dense": transformer, "ssm": ssm_lm}
 def model_module(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} comes with the training slice "
-            f"(ROADMAP Queue 1 slice 5); ported: {sorted(_FAMILIES)}")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
+            f"Queue 1: MoE, zamba2 + sliding window, frontends); ported: "
+            f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -32,15 +37,39 @@ def model_class(cfg: ModelConfig):
     return mod.TransformerLM if mod is transformer else mod.Mamba2LM
 
 
-def init_params(cfg: ModelConfig, generator):
+def init_params(cfg: ModelConfig, generator, trainable: bool = False):
     """The family's module, parameters drawn from ``generator`` (a seeded
-    ``torch.Generator``) on its device."""
-    return model_module(cfg).init_params(cfg, generator)
+    ``torch.Generator``) on its device; ``trainable``: they require
+    gradients."""
+    return model_module(cfg).init_params(cfg, generator, trainable)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The reference's parameter pytree as ``meta`` tensors (shape and
+    dtype, no storage): ``{"layers": {name: ...}, "embed": ..., ...}``."""
+    tree: dict = {}
+    for name, p in model_class(cfg)(cfg, device="meta").named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach()
+    return tree
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None):
     """Logits (B, S, V_pad) of tokens (B, S): the prefill path."""
     return model_module(cfg).forward(cfg, params, tokens, positions)
+
+
+def train_forward(cfg: ModelConfig, params, tokens, positions=None):
+    """``forward`` with gradients and ``cfg.remat``: the train path."""
+    return model_module(cfg).train_forward(cfg, params, tokens, positions)
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, labels):
+    """Mean token cross-entropy of ``train_forward``'s logits."""
+    return model_module(cfg).loss_fn(cfg, params, tokens, labels)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,12 +1,14 @@
 """Shared neural-net building blocks (a port of the JAX package's
-``models/layers.py``, serving path).
+``models/layers.py``).
 
 RMSNorm in fp32, rotary embeddings with the half-split convention, the
-three branches of ``attention`` (one-token decode, full sequence through
-the flash kernel, blockwise over a cache with a valid prefix), SwiGLU, and
-the initialisers with the reference's laws drawn from a ``torch.Generator``.
-The reference's sharding constraints and its ``REPRO_OPT`` switches have no
-counterpart: the port computes their defaults.
+branches of ``attention`` (one-token decode, full sequence through the
+flash kernel, the same with its recompute backward when gradients are
+taken, blockwise over a cache with a valid prefix), SwiGLU, the token
+cross-entropy, and the initialisers with the reference's laws drawn from a
+``torch.Generator``.  The reference's sharding constraints and its
+``REPRO_OPT`` switches have no counterpart: the port computes their
+defaults.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_lse
 
 _NEG = -1e30
 
@@ -107,26 +109,103 @@ def _mask(q_pos, kpos, causal: bool, kv_len) -> torch.Tensor:
     return mask
 
 
+def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int):
+    """(dq, dk, dv) of the full-sequence attention: the reference's
+    ``_flash_train_bwd`` (fp32 path), blockwise over ``block_kv`` keys.
+    Each block's probabilities are rebuilt from ``lse``; no (Sq, Sk)
+    tensor outlives its block.  K/V are read per q head (GQA) and dK/dV
+    summed over each group of H / KV heads."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    n_rep = h // kv
+    block = min(block_kv, sk)
+    scale = 1.0 / math.sqrt(hd)
+    q32 = q.float()
+    do32 = dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", do32, out.float())   # (B, H, Sq)
+    k32 = _repeat_kv(k, n_rep).float()
+    v32 = _repeat_kv(v, n_rep).float()
+    q_pos = (sk - sq) + torch.arange(sq, device=q.device)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
+    dq = torch.zeros_like(q32)
+    dk = torch.empty_like(k32)
+    dv = torch.empty_like(v32)
+    for start in range(0, sk, block):
+        # the reference pads the last block; its padded keys are masked,
+        # so a shorter last block gives the same sums
+        kblk = k32[:, start:start + block]
+        vblk = v32[:, start:start + block]
+        kpos = start + torch.arange(kblk.shape[1], device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, kblk)
+        if causal:
+            s = torch.where(_mask(q_pos, kpos, True, None)[None, None], s,
+                            neg)
+        p = torch.exp(s - lse[..., None])
+        dv[:, start:start + block] = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vblk)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kblk)
+        dk[:, start:start + block] = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
+    if n_rep > 1:
+        dk = dk.view(b, sk, kv, n_rep, hd).sum(dim=3)
+        dv = dv.view(b, sk, kv, n_rep, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashTrain(torch.autograd.Function):
+    """Full-sequence attention with a recompute backward (the reference's
+    ``_flash_train`` custom VJP).
+
+    Forward: (o, lse) from one launch of the flash kernel on a CUDA tensor
+    (``flash_attention_lse``), the plain version on the CPU; K/V keep
+    their KV heads (the kernel reads them in place).  Saved: q, k, v, o and
+    lse, O(S) of them.  Backward: ``_flash_train_bwd``, plain PyTorch as
+    the reference's is ``jnp`` (its Pallas kernel has no backward).  ``lse``
+    takes no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_kv: int):
+        out, lse = flash_attention_lse(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.block_kv = causal, block_kv
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_train_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                      ctx.block_kv)
+        return dq, dk, dv, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, q_offset: Optional[int] = None,
               block_kv: int = 1024, kv_len: Optional[int] = None,
               window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype.
 
-    Three branches, as in the reference: one query row (decode) is one
-    dense fp32 pass over the keys; a full sequence without ``kv_len``
-    (prefill) is the flash kernel (``kernels/flash_attention``: the CUDA
-    kernel on the card, its plain version on the CPU), with q rows at key
-    positions Sk - Sq + i; with ``kv_len`` it is the blockwise online
-    softmax over ``block_kv`` keys at a time.
+    The reference's branches: one query row (decode) is one dense fp32
+    pass over the keys; a full sequence without ``kv_len`` is the flash
+    kernel (``kernels/flash_attention``: the CUDA kernel on the card, its
+    plain version on the CPU), with q rows at key positions Sk - Sq + i —
+    through ``FlashTrain`` and its recompute backward when gradients are
+    on and an input requires one (training), the forward alone otherwise
+    (prefill); with ``kv_len`` it is the blockwise online softmax over
+    ``block_kv`` keys at a time.
     """
     if window > 0:
         raise NotImplementedError(
-            "sliding-window attention comes with the hybrid (zamba2) in the "
-            "training slice, ROADMAP Queue 1 slice 5")
+            "sliding-window attention comes with the hybrid (zamba2), "
+            "ROADMAP Queue 1 (zamba2 + sliding window)")
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sq > 1 and kv_len is None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashTrain.apply(q, k, v, causal, block_kv)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal)
     n_rep = h // k.shape[2]
@@ -181,3 +260,16 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
     return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels (B, S) integer."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

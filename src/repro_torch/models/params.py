@@ -2,12 +2,13 @@
 
 The reference keeps each model's parameters as a pytree of arrays; the port
 keeps them as ``torch.nn.Parameter``s under the same names and shapes, with
-the layers' parameters stacked along a leading ``num_layers`` axis.
-Serving computes no gradients, so no parameter requires one.
+the layers' parameters stacked along a leading ``num_layers`` axis.  A
+serving module's parameters require no gradient; a trainable module's
+(``requires_grad=True``, the training path) do.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -19,22 +20,34 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def no_grad_parameter(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
-    """An uninitialised parameter that requires no gradient."""
+def parameter(shape, dtype: torch.dtype, device,
+              requires_grad: bool = False) -> torch.nn.Parameter:
+    """An uninitialised parameter; it requires a gradient only when asked."""
     return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
-                                          device=device), requires_grad=False)
+                                          device=device),
+                              requires_grad=requires_grad)
 
 
 class StackedParams(torch.nn.Module):
     """One parameter per name, each stacked along a leading layer axis."""
 
     def __init__(self, shapes: Dict[str, Tuple[int, ...]], dtype: torch.dtype,
-                 device):
+                 device, requires_grad: bool = False):
         super().__init__()
         for name, shape in shapes.items():
-            self.register_parameter(name,
-                                    no_grad_parameter(shape, dtype, device))
+            self.register_parameter(
+                name, parameter(shape, dtype, device, requires_grad))
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s parameters (views, no copy)."""
         return {name: p[i] for name, p in self.named_parameters()}
+
+    def unbind(self) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's parameters (views, no copy).  Under autograd one
+        ``unbind`` per name stacks the layers' gradients once in the
+        backward, where a view per layer would add a zero-padded
+        full-stack gradient per layer."""
+        per_name = {name: p.unbind(0) for name, p in self.named_parameters()}
+        layers = len(next(iter(per_name.values()))) if per_name else 0
+        return [{name: views[i] for name, views in per_name.items()}
+                for i in range(layers)]

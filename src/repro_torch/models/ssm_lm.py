@@ -3,8 +3,9 @@ package's ``models/ssm_lm.py``, serving path).
 
 ``Mamba2LM`` holds ``embed``, ``layers.<name>`` stacked along a leading
 ``num_layers`` axis (``layers.A_log`` (L, H), ...), ``final_norm`` and
-``lm_head``.  The Zamba2-style hybrid (``attn_every > 0``) comes with the
-training slice.
+``lm_head``.  The Zamba2-style hybrid (``attn_every > 0``) and training
+(``train_forward``, ``loss_fn``) are ROADMAP Queue 1 items (zamba2 +
+sliding window; mamba2 training through the ssd path) and raise.
 """
 from __future__ import annotations
 
@@ -16,33 +17,36 @@ from .._device import DEFAULT_DEVICE, resolve
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import mamba2 as M
-from .params import StackedParams, dtype_of, no_grad_parameter
+from .params import StackedParams, dtype_of, parameter
 from .transformer import padded_vocab
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_every > 0:
         raise NotImplementedError(
-            f"{cfg.name}: the SSM + shared-attention hybrid comes with the "
-            f"training slice (ROADMAP Queue 1 slice 5)")
+            f"{cfg.name}: the SSM + shared-attention hybrid is not ported "
+            f"yet (ROADMAP Queue 1, zamba2 + sliding window)")
 
 
 class Mamba2LM(torch.nn.Module):
     """Pure-SSM LM; parameters uninitialised until ``init_params`` or
-    ``convert.params_to_port`` fills them."""
+    ``convert.params_to_port`` fills them.  ``trainable``: every parameter
+    requires a gradient (though ``train_forward`` raises until the SSM
+    family's training is ported)."""
 
-    def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE):
+    def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE,
+                 trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         device = resolve(device)
         self.cfg = cfg
         dt = dtype_of(cfg.param_dtype)
         v = padded_vocab(cfg)
-        self.embed = no_grad_parameter((v, cfg.d_model), dt, device)
+        self.embed = parameter((v, cfg.d_model), dt, device, trainable)
         self.layers = StackedParams(M.layer_shapes(cfg, cfg.num_layers), dt,
-                                    device)
-        self.final_norm = no_grad_parameter((cfg.d_model,), dt, device)
-        self.lm_head = no_grad_parameter((cfg.d_model, v), dt, device)
+                                    device, trainable)
+        self.final_norm = parameter((cfg.d_model,), dt, device, trainable)
+        self.lm_head = parameter((cfg.d_model, v), dt, device, trainable)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -50,10 +54,11 @@ class Mamba2LM(torch.nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Mamba2LM:
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                trainable: bool = False) -> Mamba2LM:
     """Parameters with the reference's laws, drawn from ``generator`` on its
     device."""
-    model = Mamba2LM(cfg, generator.device)
+    model = Mamba2LM(cfg, generator.device, trainable)
     model.embed.copy_(L.embed_init(generator, model.embed.shape,
                                    model.embed.dtype))
     M.init_layer_params(dict(model.layers.named_parameters()), generator)
@@ -79,6 +84,19 @@ def forward(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x = x + M.mamba2_block(cfg, params.layers.layer(i), x)
     return _logits(cfg, params, x)
+
+
+def train_forward(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    raise NotImplementedError(
+        f"{cfg.name}: training the SSM family (ssd_scan has no backward "
+        f"yet) is a ROADMAP Queue 1 item (mamba2 training through the ssd "
+        f"path)")
+
+
+def loss_fn(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    return train_forward(cfg, params, tokens)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

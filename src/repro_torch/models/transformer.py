@@ -1,23 +1,26 @@
 """Decoder transformer LM, dense family (a port of the JAX package's
-``models/transformer.py``, serving path).
+``models/transformer.py``).
 
 ``TransformerLM`` holds the parameters under the reference's pytree names
 and shapes: ``layers.<name>`` stacked along a leading ``num_layers`` axis
 (``layers.wq`` (L, d, H, hd), ...), ``embed``, ``final_norm`` and
-``lm_head``.  The forward pass is a loop over layers that indexes them.
-MoE (``num_experts > 0``) and embedding inputs come with the training
-slice.
+``lm_head``.  The forward pass is a loop over layers.  ``forward`` (the
+prefill path) takes no gradient; ``train_forward`` is the same loop with
+gradients and the config's activation rematerialisation, and ``loss_fn``
+its token cross-entropy.  MoE (``num_experts > 0``) and embedding inputs
+are ROADMAP Queue 1 items (MoE, frontends).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve
 from ..configs.base import ModelConfig
 from . import layers as L
-from .params import StackedParams, dtype_of, no_grad_parameter
+from .params import StackedParams, dtype_of, parameter
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -46,29 +49,31 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.num_experts:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the training slice "
-            f"(ROADMAP Queue 1 slice 5)")
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1, "
+            f"MoE)")
     if cfg.embedding_inputs:
         raise NotImplementedError(
-            f"{cfg.name}: embedding-input families come with the training "
-            f"slice (ROADMAP Queue 1 slice 5)")
+            f"{cfg.name}: embedding-input families are not ported yet "
+            f"(ROADMAP Queue 1, frontends)")
 
 
 class TransformerLM(torch.nn.Module):
     """Dense decoder LM; parameters uninitialised until ``init_params`` or
-    ``convert.params_to_port`` fills them."""
+    ``convert.params_to_port`` fills them.  ``trainable``: every parameter
+    requires a gradient (the training path); else none does (serving)."""
 
-    def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE):
+    def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE,
+                 trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         device = resolve(device)
         self.cfg = cfg
         dt = dtype_of(cfg.param_dtype)
         v = padded_vocab(cfg)
-        self.layers = StackedParams(_layer_shapes(cfg), dt, device)
-        self.embed = no_grad_parameter((v, cfg.d_model), dt, device)
-        self.final_norm = no_grad_parameter((cfg.d_model,), dt, device)
-        self.lm_head = no_grad_parameter((cfg.d_model, v), dt, device)
+        self.layers = StackedParams(_layer_shapes(cfg), dt, device, trainable)
+        self.embed = parameter((v, cfg.d_model), dt, device, trainable)
+        self.final_norm = parameter((cfg.d_model,), dt, device, trainable)
+        self.lm_head = parameter((cfg.d_model, v), dt, device, trainable)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -76,11 +81,12 @@ class TransformerLM(torch.nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> TransformerLM:
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                trainable: bool = False) -> TransformerLM:
     """Parameters with the reference's laws (norms 1, truncated-normal
     fan-in weights, 0.02 embedding), drawn from ``generator`` on its
     device."""
-    model = TransformerLM(cfg, generator.device)
+    model = TransformerLM(cfg, generator.device, trainable)
     for name, p in sorted(model.layers.named_parameters()):
         shape = p.shape
         if "norm" in name:
@@ -161,20 +167,57 @@ def _unembed(cfg: ModelConfig, params: TransformerLM,
     return h @ params.lm_head.to(dtype)
 
 
-@torch.no_grad()
-def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V_pad).  Prefill path: one
-    flash-attention launch per layer on the card."""
+def _layer(cfg: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    x = x + _attn_block(cfg, lp, x, positions)
+    return x + _ffn_block(cfg, lp, x)
+
+
+def _forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor], remat: str) -> torch.Tensor:
     x = _embed(cfg, params, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    for i in range(cfg.num_layers):
-        lp = params.layers.layer(i)
-        x = x + _attn_block(cfg, lp, x, positions)
-        x = x + _ffn_block(cfg, lp, x)
+    for lp in params.layers.unbind():
+        if remat == "full":
+            x = checkpoint(_layer, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = _layer(cfg, lp, x, positions)
     return _unembed(cfg, params, x)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V_pad).  Prefill path: one
+    flash-attention launch per layer on the card, no gradient."""
+    return _forward(cfg, params, tokens, positions, remat="none")
+
+
+def train_forward(cfg: ModelConfig, params: TransformerLM,
+                  tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``forward`` with gradients: the reference's train path.
+
+    ``cfg.remat``: ``"full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    scan body), so a layer's flash kernel launches twice a step;
+    ``"none"`` keeps every activation.  ``"dots"`` (save the matmul
+    outputs) is not ported and raises.
+    """
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported (\"dots\" is a "
+            f"ROADMAP Queue 1 item); use \"full\" or \"none\"")
+    return _forward(cfg, params, tokens, positions, cfg.remat)
+
+
+def loss_fn(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of ``train_forward``'s logits (the padded
+    vocab tail never appears in labels)."""
+    return L.cross_entropy_loss(train_forward(cfg, params, tokens), labels)
 
 
 # --------------------------------------------------------------------------

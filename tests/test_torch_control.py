@@ -874,7 +874,7 @@ def test_adaptive_planner_on_the_cpu_and_its_string_mode():
         (600, 2, "cached", CPU)
     assert ap.controller.planner.objective.device == CPU
     assert "AdaptivePlanner" in papi.__all__
-    assert "TrainerActuator" not in pctl.__all__
+    assert "TrainerActuator" in pctl.__all__      # ported with training
     rng = np.random.default_rng(1)
     events = [ap.observe(1.0 + rng.exponential(2.0, N)) for _ in range(20)]
     assert ap.model is not None and ap.events
