@@ -129,7 +129,36 @@ Phases, none of whose failures is caught (any fault exits non-zero):
      56 kernel launches a step, counted; a falling, finite loss; the
      checkpoint restored onto the card bit for bit; one more step under
      ``torch.profiler``.
-10. One JSON line listing every kernel with its launches and times; the
+10. The SSM families at full width (the windowed route of
+    ``flash_attention``, ``ssd_scan`` under ``SSDTrain``), each part
+    freeing the card before the next:
+   a. the windowed flash kernel at zamba2-1.2b's prefill shape (B 2 x
+      S 8192, H = KV = 32, D 64, bf16, causal, window 4096), without and
+      with lse, against its plain version (in 4-head slices); outputs of
+      the plain version at a window one key too wide and one too narrow
+      must fail the check; the same for the fp32 SIMT schedule at S 2048
+      (window 512) and at the training shape (B 16 x S 256); times of the
+      kernel with and without lse, the plain version and SDPA with the
+      window's boolean mask;
+   b. ``ssd_scan`` at zamba2's shape (H 64, P 64, N 64, chunk 256, B 2 x
+      S 8192, bf16, two planted faults) and at mamba2-1.3b's training
+      shape (B 16 x S 256, N 128) against its plain version;
+   c. zamba2-1.2b at full width and depth (1.2 B fp32 parameters made on
+      the card): a 64-token fp32 prefill against 64 decode steps with the
+      window cut to 32 (the ring buffer wraps); the bf16 prefill at B 2 x
+      S 8192 (first and warm call, 38 scan and 6 flash launches each
+      counted, one more under ``torch.profiler``); the hedged serving loop
+      of phase 5;
+   d. ``FlashTrain`` with the window (B 1 x S 8192, fp32) against autograd
+      through the plain version; ``SSDTrain``'s plain backward a layer at
+      both families' training shapes; then ``launch.train`` for
+      mamba2-1.3b and zamba2-1.2b as phase 9 runs qwen3-0.6b (8 steps,
+      16 coded rows x 256 tokens, remat full): each step's loss and ms, the
+      median warm step, tokens/s, peak memory (under half the card), the
+      launches a step (96 scans; 76 scans and 6 flash), a falling, finite
+      loss, zamba2's checkpoint restored bit for bit, a forward / backward
+      / AdamW split and one profiled step.
+11. One JSON line listing every kernel with its launches and times; the
     last line is the device record.
 """
 from __future__ import annotations
@@ -152,6 +181,8 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/coded_matmul/csrc/coded_matmul.cu"
 REPLACES = "src/repro/kernels/coded_matmul/kernel.py:52"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_WINDOW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_window.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:63"
@@ -297,6 +328,41 @@ TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--scale", "full", "--seq-len", "256",
               "--straggle", "bimodal:10:0.2", "--steps", "8",
               "--ckpt-every", "8", "--replan-every", "4", "--device", "cuda"]
 TRAIN_STEPS, TRAIN_LAUNCHES_PER_STEP = 8, 56
+# phase 10: the SSM families at full width.  The windowed flash kernel
+# at zamba2-1.2b's prefill shape (B 2 x S 8192, H = KV = 32, D 64, bf16,
+# causal, window 4096: the window binds), held to its plain version in
+# 4-head slices (its (B, H, S, S) fp32 scores do not fit the card at
+# once), with and without lse; the fp32 SIMT schedule with a window at a
+# smaller S; the training route's shape (16 coded rows x 256 tokens, where
+# the window does not bind); a planted window one key too wide and one
+# too narrow must fail the check at the prefill shape
+SSM_WINDOW = 4096
+SSM_FLASH_SHAPES = [((2, 8192, 8192, 32, 32, 64), torch.bfloat16, SSM_WINDOW),
+                    ((1, 2048, 2048, 8, 8, 64), torch.float32, 512),
+                    ((16, 256, 256, 32, 32, 64), torch.bfloat16, SSM_WINDOW)]
+SSM_PLAIN_HEADS = 4
+# the scan at zamba2's prefill shape (N 64: mamba2's is 128) and at
+# mamba2-1.3b's training shape; tolerances and planted faults as phase 3's
+SSM_SSD_SHAPES = [((2, 8192, 64, 64, 64), 256), ((16, 256, 64, 64, 128), 256)]
+# SSDTrain's plain backward is timed at both families' training shapes
+SSM_SSD_TRAIN = {"mamba2-1.3b": SSM_SSD_SHAPES[1],
+                 "zamba2-1.2b": ((16, 256, 64, 64, 64), 256)}
+# zamba2-1.2b's prefill: B 2 x S 8192 in bf16, one ssd_scan launch a mamba
+# layer and one flash launch a shared-attention site; the 64-token fp32
+# prefill-vs-decode check with the window cut to 32, so the decode's ring
+# buffer wraps
+SSM_PREFILL = (2, 8192)
+SSM_DECODE_WINDOW = 32
+# FlashTrain with a window against autograd through the plain fp32
+# version (in 4-head slices): B 1 x S 8192, H = KV = 32, D 64, window 4096,
+# block_kv 1024 (zamba2's flash_block_kv); TRAIN_BWD_TOL
+SSM_BWD_SHAPE = (1, 8192, 32, 64)
+# launch.train at full width and depth for both families, as phase 9 runs
+# qwen3-0.6b (c = 2 from bimodal:10:0.2, 16 coded rows x 256 tokens, 8
+# steps, remat full: each mamba layer's scan launches twice a step, each
+# shared-attention site's flash once); only zamba2 writes its checkpoint
+SSM_TRAIN = {"mamba2-1.3b": dict(ssd_scan=96, flash_attention=0),
+             "zamba2-1.2b": dict(ssd_scan=76, flash_attention=6)}
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -531,6 +597,20 @@ def planted_faults(q, k, v, ref, atol: float, rtol: float) -> None:
         assert e > 1, f"the tolerance misses a planted fault: {name}"
 
 
+def kept_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> float:
+    """The (q, k) pairs a head keeps: all Sq * Sk without ``causal``; with
+    it, row i (at key position Sk - Sq + i) keeps min(pos + 1, window)
+    keys (every key up to its own without a window)."""
+    if not causal:
+        return float(sq * sk)
+
+    def upto(n: int) -> float:      # the rows at positions 0 .. n - 1
+        w = window if 0 < window < n else n
+        return w * (w + 1) / 2 + (n - w) * w
+
+    return upto(sk) - upto(sk - sq)
+
+
 def flash_compare(shape, dtype, causal: bool, gen, reps: int,
                   plant: bool = False) -> dict:
     """flash_attention against its plain version on one input, then the
@@ -568,8 +648,7 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
                          "plain") if n in fns]
     t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
                                  "library": reps})
-    # q rows i see keys up to (Sk - Sq) + i under the causal mask
-    pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) / 2 if causal else Sq * Sk
+    pairs = kept_pairs(Sq, Sk, causal)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     ops = 4.0 * B * H * pairs * D
     b_ms, b_by = roofline(nbytes, ops, dtype)
@@ -1673,7 +1752,7 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
                          "kernel", "no_lse", "plain") if n in fns]
     t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
                                  "no_lse": reps, "library": reps})
-    pairs = Sq * (Sk - Sq) + Sq * (Sq + 1) / 2 if causal else Sq * Sk
+    pairs = kept_pairs(Sq, Sk, causal)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + B * H * Sq * 4
     ops = 4.0 * B * H * pairs * D
     b_ms, b_by = roofline(nbytes, ops, dtype)
@@ -1693,12 +1772,74 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
                 library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
+def restore_check(run, ckpt_dir: Path, steps: int) -> None:
+    """The checkpoint ``launch.train`` wrote after its last step, restored
+    onto the card: every leaf bit for bit, or the phase fails.  The
+    checkpoint is removed after."""
+    from repro_torch import checkpoint as ckpt
+    t0 = time.perf_counter()
+    latest = ckpt.latest_step(str(ckpt_dir))
+    assert latest == steps, latest
+    restored, manifest = ckpt.restore(str(ckpt_dir), latest,
+                                      {"p": run.params, "o": run.opt_state},
+                                      device="cuda")
+    same = restored["o"].step == run.opt_state.step and all(
+        torch.equal(restored["p"][name], p)
+        for name, p in run.params.named_parameters()) and all(
+        torch.equal(restored["o"][i][name], t)
+        for i in (1, 2) for name, t in run.opt_state[i].items())
+    size_gb = sum(f.stat().st_size for f in
+                  (ckpt_dir / f"step_{latest:09d}").iterdir()) / 1e9
+    print(f"  checkpoint step {latest}: {manifest['num_leaves']} leaves, "
+          f"{size_gb:.2f} GB, restored onto the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock): bit for bit "
+          f"{same}", flush=True)
+    assert same
+    del restored
+    shutil.rmtree(ckpt_dir)
+
+
+def step_split(run, step: int) -> list:
+    """One warm step of ``run``'s trainer split by CUDA events: forward and
+    loss, backward (the layers' recompute and the plain backwards in it),
+    AdamW; then one more under the profiler.  Returns the three ms."""
+    import numpy as np
+    from repro_torch.data import coded_batch, decode_example_weights
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import weighted_loss_fn
+    cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+    tr = run.trainer
+    toks, labs = coded_batch(tr.data_cfg, step, tr.step_cfg.code)
+    coef = tr.decode_coefficients(tr.gather_alive(step))
+    w = torch.from_numpy(decode_example_weights(
+        tr.step_cfg.code, coef, tr.step_cfg.per_worker_rows,
+        tr.step_cfg.unique_batch)).cuda()
+    leaves = dict(run.params.named_parameters())
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    loss = weighted_loss_fn(run.cfg)(run.params, cuda(toks), cuda(labs), w)
+    events[1].record()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    events[2].record()
+    adamw.apply_updates(tr.opt_cfg, run.params, dict(zip(leaves, grads)),
+                        run.opt_state)
+    events[3].record()
+    torch.cuda.synchronize()
+    split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    print(f"  one warm step by part (CUDA events): forward + loss "
+          f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW "
+          f"{split[2]:.2f} ms", flush=True)
+    del loss, grads, leaves
+    profile_call("training step", lambda: run.trainer.run_step(
+        run.params, run.opt_state, step + 1))
+    return split
+
+
 def training_phase(seed: int) -> dict:
     """Phase 9: the coded training slice on the card.  Returns the row of
     the training route of flash_attention (its time at the training shape
     and its launches in the full-width run)."""
     import numpy as np
-    from repro_torch import checkpoint as ckpt
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core.coding import gc_decode_weights
     from repro_torch.data import (DataConfig, coded_batch,
@@ -1709,7 +1850,6 @@ def training_phase(seed: int) -> dict:
     from repro_torch.launch import train
     from repro_torch.models import api
     from repro_torch.models.layers import FlashTrain, _flash_train_bwd
-    from repro_torch.optim import adamw
     from repro_torch.runtime import CodedStepConfig, weighted_loss_fn
     phase("9. coded training at full width")
     t_phase = time.perf_counter()
@@ -1842,60 +1982,376 @@ def training_phase(seed: int) -> dict:
     assert losses[-1] < losses[0], losses
     assert peak_gb < total_gb / 2, (peak_gb, total_gb)
 
-    # the checkpoint written after step 8, restored onto the card
-    t0 = time.perf_counter()
-    latest = ckpt.latest_step(str(ckpt_dir))
-    assert latest == TRAIN_STEPS, latest
-    restored, manifest = ckpt.restore(str(ckpt_dir), latest,
-                                      {"p": run.params, "o": run.opt_state},
-                                      device="cuda")
-    same = restored["o"].step == run.opt_state.step and all(
-        torch.equal(restored["p"][name], p)
-        for name, p in run.params.named_parameters()) and all(
-        torch.equal(restored["o"][i][name], t)
-        for i in (1, 2) for name, t in run.opt_state[i].items())
-    size_gb = sum(f.stat().st_size for f in
-                  (ckpt_dir / f"step_{latest:09d}").iterdir()) / 1e9
-    print(f"  checkpoint step {latest}: {manifest['num_leaves']} leaves, "
-          f"{size_gb:.2f} GB, restored onto the card in "
-          f"{time.perf_counter() - t0:.2f} s (host clock): bit for bit "
-          f"{same}", flush=True)
-    assert same
-    del restored
-    shutil.rmtree(ckpt_dir)
-
-    # one warm step split by CUDA events: forward and loss, backward
-    # (the layers' recompute and the plain attention backward in it),
-    # AdamW; then one more under the profiler
-    tr = run.trainer
-    toks, labs = coded_batch(tr.data_cfg, TRAIN_STEPS, tr.step_cfg.code)
-    coef = tr.decode_coefficients(tr.gather_alive(TRAIN_STEPS))
-    w = torch.from_numpy(decode_example_weights(
-        tr.step_cfg.code, coef, tr.step_cfg.per_worker_rows,
-        tr.step_cfg.unique_batch)).cuda()
-    leaves = dict(run.params.named_parameters())
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    events[0].record()
-    loss = weighted_loss_fn(run.cfg)(run.params, cuda(toks), cuda(labs), w)
-    events[1].record()
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    events[2].record()
-    adamw.apply_updates(tr.opt_cfg, run.params, dict(zip(leaves, grads)),
-                        run.opt_state)
-    events[3].record()
-    torch.cuda.synchronize()
-    split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    print(f"  one warm step by part (CUDA events): forward + loss "
-          f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW "
-          f"{split[2]:.2f} ms", flush=True)
-    del loss, grads, leaves
-    profile_call("training step", lambda: run.trainer.run_step(
-        run.params, run.opt_state, TRAIN_STEPS + 1))
+    restore_check(run, ckpt_dir, TRAIN_STEPS)
+    step_split(run, TRAIN_STEPS)
     del run
     torch.cuda.empty_cache()
     print(f"  phase 9 in {time.perf_counter() - t_phase:.1f} s (host clock)",
           flush=True)
     return dict(train_row, launches=launches)
+
+
+def sliced_plain(q, k, v, causal: bool, window: int, with_lse: bool,
+                 heads: int = SSM_PLAIN_HEADS):
+    """The plain version over ``heads`` q heads (and their KV heads) at a
+    time, concatenated: all its (B, H, Sq, Sk) fp32 scores at once do not
+    fit the card at zamba2's prefill shape.  (o, lse) with ``with_lse``."""
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref)
+    rep = q.shape[2] // k.shape[2]
+    outs, lses = [], []
+    for h0 in range(0, q.shape[2], heads):
+        kv = slice(h0 // rep, (h0 + heads) // rep)
+        args = (q[:, :, h0:h0 + heads], k[:, :, kv], v[:, :, kv], causal,
+                window)
+        if with_lse:
+            o, lse = attention_lse_ref(*args)
+            lses.append(lse)
+        else:
+            o = attention_ref(*args)
+        outs.append(o)
+    o = torch.cat(outs, dim=2)
+    return (o, torch.cat(lses, dim=1)) if with_lse else o
+
+
+def windowed_flash_compare(shape, dtype, window: int, gen, reps: int,
+                           plant: bool = False) -> dict:
+    """The windowed (causal) flash kernel, without and with lse, against
+    its plain version on one input: o within phase 3's tolerance, lse
+    within LSE_TOL, both launches' o equal.  Then the times of the kernel
+    without and with lse, the plain version (in head slices) and SDPA with
+    the window's boolean mask (with ``is_causal`` where the window keeps
+    every causal key), in turns.  ``plant``: outputs made with the plain
+    version at a window one key too wide and one key too narrow must fail
+    the check."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_lse)
+    B, Sq, Sk, H, KV, D = shape
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, True, window)
+    out_l, lse = flash_attention_lse(q, k, v, True, window)
+    ref, ref_lse = sliced_plain(q, k, v, True, window, True)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    atol, rtol = FLASH_TOL[dtype]
+    ratio = max(excess(out, ref, atol, rtol), excess(out_l, ref, atol, rtol))
+    max_abs = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    same = torch.equal(out, out_l)
+    ok = ratio <= 1 and lse_err <= LSE_TOL[dtype] and same
+    if plant:
+        hs = slice(0, SSM_PLAIN_HEADS)
+        for name, w in (("one key too wide", window + 1),
+                        ("one key too narrow", window - 1)):
+            faulted = sliced_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs],
+                                   True, w, False)
+            e = excess(faulted, ref[:, :, hs], atol, rtol)
+            print(f"    planted fault, window {w} ({name}): max |out-ref| / "
+                  f"limit = {e:.3g}  {'caught' if e > 1 else 'MISSED'}",
+                  flush=True)
+            assert e > 1, f"the tolerance misses a planted fault: {name}"
+            del faulted
+    del out, out_l, lse, ref, ref_lse
+    fns = {"plain": lambda: sliced_plain(q, k, v, True, window, False),
+           "kernel": lambda: flash_attention(q, k, v, True, window),
+           "lse": lambda: flash_attention_lse(q, k, v, True, window)}
+    if Sq == Sk:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window >= Sk:
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            gap = (torch.arange(Sq, device="cuda")[:, None]
+                   - torch.arange(Sk, device="cuda")[None, :])
+            mask = (gap >= 0) & (gap < window)
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    order = [n for n in ("plain", "kernel", "lse", "library", "library",
+                         "lse", "kernel", "plain") if n in fns]
+    t = timed_turns(fns, order, {"plain": max(1, reps // 5), "kernel": reps,
+                                 "lse": reps, "library": reps})
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    ops = 4.0 * B * H * kept_pairs(Sq, Sk, True, window) * D
+    b_ms, b_by = roofline(nbytes, ops, dtype)
+    lse_b_ms, lse_b_by = roofline(nbytes + B * H * Sq * 4, ops, dtype)
+    library = t.get("library")
+    sdpa = f"{library:.4f} ms" if library is not None else "n/a"
+    print(f"  flash B={B:2d} S={Sq:5d} H={H} KV={KV} D={D} causal "
+          f"window={window} {str(dtype)[6:]:8s} o /limit {ratio:.3f} (tol "
+          f"{atol:g} abs + {rtol:g} rel), max|lse-ref| {lse_err:.3e} (tol "
+          f"{LSE_TOL[dtype]:g}), o with = without lse {same}  kernel "
+          f"{t['kernel']:.4f} ms, with lse {t['lse']:.4f} ms  plain "
+          f"{t['plain']:.4f} ms ({SSM_PLAIN_HEADS}-head slices)  sdpa "
+          f"{sdpa}  bound {b_ms:.4f} ms ({b_by}; "
+          f"{rate(t['kernel'], nbytes, ops, b_ms, b_by)})  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return dict(max_abs_err=max_abs, lse_err=lse_err, ok=ok, ms=t["kernel"],
+                lse_ms=t["lse"], plain_ms=t["plain"], library_ms=library,
+                bound_ms=b_ms, bound_by=b_by, lse_bound_ms=lse_b_ms,
+                lse_bound_by=lse_b_by)
+
+
+def ssm_prefill(seed: int) -> dict:
+    """Phase 10 c: zamba2-1.2b's prefill, decode and serve loop at full
+    width and depth.  Returns the kernels' launches over the bf16
+    prefills at SSM_PREFILL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = get_config("zamba2-1.2b")
+    sites = cfg.num_layers // cfg.attn_every
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"zamba2-1.2b: {n_params / 1e6:.1f} M parameters, fp32, made on the "
+          f"card in {time.perf_counter() - t0:.2f} s (host clock); "
+          f"{cfg.num_layers} mamba layers, the shared block at {sites} sites",
+          flush=True)
+    launches = {"ssd_scan": 0, "flash_attention": 0}
+
+    def forward(c, toks, count: bool):
+        ssd_scan.launches = flash_attention.launches = 0
+        logits = api.forward(c, model, toks)
+        torch.cuda.synchronize()
+        got = (ssd_scan.launches, flash_attention.launches)
+        assert got == (cfg.num_layers, sites), got
+        if count:
+            launches["ssd_scan"] += got[0]
+            launches["flash_attention"] += got[1]
+        assert torch.isfinite(logits).all()
+        assert logits.shape == (*toks.shape, api.padded_vocab(c))
+        return logits
+
+    # prefill against token-by-token decode, fp32, the window cut to 32
+    cfg32 = cfg.scaled(compute_dtype="float32", attn_window=SSM_DECODE_WINDOW)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device="cuda")
+    full = forward(cfg32, toks, count=False)
+    cache = api.init_cache(cfg32, 2, 64, dtype="float32", device="cuda")
+    assert cache["attn_k"].shape == (sites, 2, SSM_DECODE_WINDOW,
+                                     cfg.num_kv_heads, cfg.resolved_head_dim)
+    steps = []
+    for t in range(64):
+        lg, cache = api.decode_step(cfg32, model, cache, toks[:, t:t + 1], t)
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, dim=1)
+    diff = (dec - full).abs()
+    ok = bool((diff <= PREFILL_TOL + PREFILL_TOL * full.abs()).all())
+    print(f"  prefill (fp32, B 2 x 64 tokens, window cut to "
+          f"{SSM_DECODE_WINDOW}: launches ssd_scan {cfg.num_layers}, "
+          f"flash_attention {sites}) against 64 decode steps (ring buffer of "
+          f"{SSM_DECODE_WINDOW} slots, wrapped): max|diff| "
+          f"{float(diff.max()):.3e}, max|logits| {float(full.abs().max()):.3f} "
+          f"(tol {PREFILL_TOL:g} abs + rel)  {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    assert ok, float(diff.max())
+    del full, dec, diff, cache, steps
+
+    # timed bf16 prefill at B 2 x S 8192: the window binds
+    b, s = SSM_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    ms = []
+    for _ in ("first", "warm"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = forward(cfg, toks, count=True)
+        end.record()
+        torch.cuda.synchronize()
+        assert logits.dtype == torch.bfloat16
+        ms.append(start.elapsed_time(end))
+        del logits
+    print(f"  prefill ({cfg.compute_dtype}, B {b} x S {s}, window "
+          f"{cfg.attn_window}; launches ssd_scan {cfg.num_layers}, "
+          f"flash_attention {sites} each): first call {ms[0]:.2f} ms, warm "
+          f"{ms[1]:.2f} ms = {b * s / ms[1] * 1e3:.0f} tokens/s (CUDA "
+          f"events)", flush=True)
+    profile_call("prefill", lambda: forward(cfg, toks, count=True))
+    del toks
+    torch.cuda.empty_cache()
+
+    # the hedged serving loop at the reference's defaults, as phase 5
+    dist = serve.parse_dist("pareto:0.05:1.8")
+    r = serve.plan_replicas(dist, 4)
+    prompt = torch.randint(1, cfg.vocab_size, (4, 32), generator=gen,
+                           device="cuda")
+    res = serve.serve(cfg, model, prompt, 32, dist, r)
+    assert res.tokens.shape == (4, 32)
+    assert ((res.tokens >= 0) & (res.tokens < api.padded_vocab(cfg))).all()
+    print(f"  serve: batch 4, prompt 32 (decode steps {res.prompt_s:.3f} s), "
+          f"gen 32 in {res.gen_s:.3f} s = {res.tokens_per_s:.1f} tokens/s "
+          f"(host clock), r = {r}; simulated service latency: hedged "
+          f"{res.sim_latency:.2f} vs unhedged E {res.unhedged:.2f}", flush=True)
+    print(f"  greedy tokens, row 0: {res.tokens[0].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssm_train_checks(gen) -> None:
+    """Phase 10 d, before the runs: FlashTrain with the window against
+    autograd through the plain version, and SSDTrain's plain backward's
+    time a layer at the two families' training shapes."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.layers import FlashTrain
+    from repro_torch.models.mamba2 import SSDTrain
+    B, S, H, D = SSM_BWD_SHAPE
+    q, k, v, dout = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                     for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FlashTrain.apply(*leaves, True, 1024, SSM_WINDOW)[0]
+    grads = torch.autograd.grad(out, leaves, dout)
+    del out, leaves
+    worst = [0.0, 0.0, 0.0]
+    scale = [0.0, 0.0, 0.0]
+    for h0 in range(0, H, SSM_PLAIN_HEADS):
+        hs = slice(h0, h0 + SSM_PLAIN_HEADS)
+        part = [t[:, :, hs].clone().requires_grad_(True) for t in (q, k, v)]
+        ref = torch.autograd.grad(sliced_plain(*part, True, SSM_WINDOW, False),
+                                  part, dout[:, :, hs])
+        for i, (g, r) in enumerate(zip(grads, ref)):
+            worst[i] = max(worst[i], float((g[:, :, hs] - r).abs().max()))
+            scale[i] = max(scale[i], float(r.abs().max()))
+        del part, ref
+    for name, w, m in zip(("dq", "dk", "dv"), worst, scale):
+        print(f"  FlashTrain {name} (B {B}, S {S}, H = KV = {H}, D {D}, fp32, "
+              f"causal, window {SSM_WINDOW}, block_kv 1024) against autograd "
+              f"through the plain version: max|diff| / max|grad| "
+              f"{w / m:.3e} (limit {TRAIN_BWD_TOL:g})", flush=True)
+        assert w / m <= TRAIN_BWD_TOL, (name, w / m)
+    del q, k, v, dout, grads
+    torch.cuda.empty_cache()
+    for arch, (shape, chunk) in SSM_SSD_TRAIN.items():
+        x, dt, A, Bm, Cm = ssd_inputs(shape, torch.bfloat16, gen, True)
+        ins = [t.requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        dy = torch.randn_like(x)
+        y = SSDTrain.apply(*ins, chunk)
+        bwd = time_ms(lambda: torch.autograd.grad(y, ins, dy,
+                                                  retain_graph=True), reps=5)
+        fwd = time_ms(lambda: ssd_scan(x.detach(), dt.detach(), A.detach(),
+                                       Bm.detach(), Cm.detach(), chunk=chunk),
+                      reps=10)
+        print(f"  SSDTrain at {arch}'s training shape {shape} chunk {chunk} "
+              f"(bf16 x, B, C): forward (the kernel) {fwd:.4f} ms, plain "
+              f"recompute backward {bwd:.4f} ms a layer (CUDA events)",
+              flush=True)
+        del x, dt, A, Bm, Cm, ins, dy, y
+    torch.cuda.empty_cache()
+
+
+def ssm_train_run(arch: str) -> dict:
+    """Phase 10 d: ``launch.train`` for ``arch`` at full width and depth.
+    Returns its kernels' launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import train
+    ckpt_dir = ROOT / "build" / "ssm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--arch", arch] + TRAIN_ARGV[2:]
+    if arch == "zamba2-1.2b":
+        argv += ["--ckpt-dir", str(ckpt_dir)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    ssd_scan.launches = flash_attention.launches = 0
+    run = train.main(argv)
+    launches = {"ssd_scan": ssd_scan.launches,
+                "flash_attention": flash_attention.launches}
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    n_params = sum(p.numel() for p in run.params.parameters())
+    hist = run.history
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} c {h['c']} dropped {h['dropped']} "
+              f"barrier fallbacks {h['fallbacks']} {h['ms']:.2f} ms (CUDA "
+              f"events)", flush=True)
+    warm = sorted(h["ms"] for h in hist[1:])
+    step_ms = warm[len(warm) // 2]
+    tokens = hist[-1]["coded_rows"] * 256
+    print(f"  {arch}: {n_params / 1e6:.1f} M parameters (fp32 master, "
+          f"{run.cfg.compute_dtype} compute, remat {run.cfg.remat}); median "
+          f"warm step {step_ms:.2f} ms = {tokens / step_ms * 1e3:.0f} coded "
+          f"tokens/s ({tokens // hist[-1]['c'] / step_ms * 1e3:.0f} unique); "
+          f"{TRAIN_STEPS} steps in {train_s:.2f} s (host clock); peak device "
+          f"memory {peak_gb:.2f} GB of {total_gb:.1f} GB", flush=True)
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    print(f"  launches in the run: {launches} ({per_step} a step: each "
+          f"mamba layer's scan forward + recompute, each site's flash "
+          f"forward)", flush=True)
+    assert launches == {n: c * TRAIN_STEPS
+                        for n, c in SSM_TRAIN[arch].items()}, launches
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert peak_gb < total_gb / 2, (peak_gb, total_gb)
+    if arch == "zamba2-1.2b":
+        restore_check(run, ckpt_dir, TRAIN_STEPS)
+    step_split(run, TRAIN_STEPS)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssm_phase(seed: int) -> dict:
+    """Phase 10: the SSM families at full width.  Returns the four kernel
+    rows of the phase, each with its launches on its main path."""
+    phase("10. SSM families at full width")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    print("a. windowed flash attention:", flush=True)
+    flash = [windowed_flash_compare(shape, dtype, w, gen,
+                                    reps=3 if i == 0 else 10, plant=i == 0)
+             for i, (shape, dtype, w) in enumerate(SSM_FLASH_SHAPES)]
+    torch.cuda.empty_cache()
+    print("b. ssd_scan:", flush=True)
+    ssd = [ssd_compare(shape, chunk, torch.bfloat16, gen, reps=10,
+                       model_law=True, plant=i == 0)
+           for i, (shape, chunk) in enumerate(SSM_SSD_SHAPES)]
+    bad = [r for r in flash + ssd if not r["ok"]]
+    assert not bad, f"kernel disagrees with its plain version: {bad}"
+    torch.cuda.empty_cache()
+    print("c. zamba2-1.2b prefill, decode and serve:", flush=True)
+    prefill = ssm_prefill(seed)
+    print("d. training:", flush=True)
+    ssm_train_checks(gen)
+    runs = {arch: ssm_train_run(arch) for arch in SSM_TRAIN}
+    print(f"  phase 10 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    shape = "B=2,S=8192,H=32,KV=32,D=64,bf16,causal,window=4096"
+    train_flash = dict(flash[2], max_abs_err=flash[2]["lse_err"],
+                       ms=flash[2]["lse_ms"],
+                       bound_ms=flash[2]["lse_bound_ms"],
+                       bound_by=flash[2]["lse_bound_by"])
+    return {
+        ("flash_attention", f"zamba2-1.2b prefill {shape}"):
+            dict(flash[0], launches=prefill["flash_attention"],
+                 source=FLASH_WINDOW_SOURCE),
+        ("flash_attention", "zamba2-1.2b training forward with lse "
+                            "B=16,S=256,H=32,KV=32,D=64,bf16,causal,"
+                            "window=4096"):
+            dict(train_flash, launches=runs["zamba2-1.2b"]["flash_attention"],
+                 source=FLASH_WINDOW_SOURCE),
+        ("ssd_scan", "zamba2-1.2b prefill B=2,S=8192,H=64,P=64,N=64,"
+                     "chunk=256,bf16"):
+            dict(ssd[0], launches=prefill["ssd_scan"]),
+        ("ssd_scan", "mamba2-1.3b training forward B=16,S=256,H=64,P=64,"
+                     "N=128,chunk=256,bf16"):
+            dict(ssd[1], launches=runs["mamba2-1.3b"]["ssd_scan"]),
+    }
 
 
 def main() -> None:
@@ -1914,8 +2370,9 @@ def main() -> None:
     fleet_phase(args.seed)
     control_phase(args.seed)
     train_flash = training_phase(args.seed)
+    ssm_rows = ssm_phase(args.seed)
 
-    phase("10. kernels")
+    phase("11. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]
@@ -1950,6 +2407,15 @@ def main() -> None:
         "bound_ms": train_flash["bound_ms"],
         "bound_by": train_flash["bound_by"],
         "library_ms": train_flash["library_ms"]})
+    for (name, shape), row in ssm_rows.items():
+        kernels.append({
+            "name": f"{name}[{shape}]", "route": "cuda",
+            "source": row.get("source", sources[name][0]),
+            "replaces": sources[name][1],
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

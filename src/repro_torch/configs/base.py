@@ -1,9 +1,10 @@
 """Architecture config schema and registry (a copy of the JAX package's
 ``configs/base.py``; the fields and their defaults are the same).
 
-Only the architectures whose serving path is ported have a config module
-here: ``qwen3-0.6b`` (dense) and ``mamba2-1.3b`` (pure SSM).  The MoE,
-hybrid and embedding-input families are ROADMAP Queue 1 items.
+Only the architectures whose serving and training paths are ported have a
+config module here: ``qwen3-0.6b`` (dense), ``mamba2-1.3b`` (pure SSM) and
+``zamba2-1.2b`` (SSM + shared attention).  The MoE and embedding-input
+families are ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 _REGISTRY: dict = {}
 
 #: the architectures this package has a config module for
-ARCH_IDS = ["qwen3-0.6b", "mamba2-1.3b"]
+ARCH_IDS = ["qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +112,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         if name not in ARCH_IDS:
             raise KeyError(f"no config {name!r} in this package; ported: "
-                           f"{ARCH_IDS} (the other families come with the "
-                           f"training slice, ROADMAP Queue 1 slice 5)")
+                           f"{ARCH_IDS} (MoE, the frontends and the other "
+                           f"configs are ROADMAP Queue 1 items)")
         mod = name.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[name]

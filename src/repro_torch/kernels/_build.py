@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each kernel is one ``.cu`` file under ``kernels/<name>/csrc/`` that exports
-plain C entry points.  It is compiled for Hopper (``sm_90a``) into a shared
+Each kernel is the ``.cu`` files under ``kernels/<name>/csrc/`` (each its
+own translation unit, with the headers beside them) that export plain C
+entry points.  They are compiled for Hopper (``sm_90a``) into one shared
 library under ``build/kernels/`` at the repository root, named by a digest
-of its sources and flags, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing is built when the package is imported: the first
+of the directory's files and the flags, so an edited source is rebuilt and
+an unchanged one is reused.  Nothing is built when the package is imported: the first
 launch builds what it needs, and ``build`` compiles several kernels at once
 (one ``nvcc`` per source, all started together).
 """

@@ -1,6 +1,7 @@
 // Flash attention forward for NVIDIA Hopper (sm_90a).
 //
-//   o = softmax(q k^T / sqrt(D) [causal]) v     q (B,Sq,H,D), k/v (B,Sk,KV,D),
+//   o = softmax(q k^T / sqrt(D) [causal, window]) v
+//                                               q (B,Sq,H,D), k/v (B,Sk,KV,D),
 //                                               o (B,Sq,H,D) in q's dtype
 //   lse = m + log(l)                            (B,H,Sq) fp32, when asked for
 //
@@ -16,11 +17,35 @@
 // block stops at the diagonal: a q tile reads keys up to its last row's
 // position only.
 //
+// Sliding window (window > 0, only under causal; the reference's
+// _block_mask, models/layers.py:197-203, which the TPU kernel lacks): row
+// i keeps key j iff 0 <= pos_i - j < window.  A q tile's KV loop starts at
+// the tile holding the first key its first row sees, pos_first - window
+// + 1, so the work is O(S * window) and not O(S^2); a warpgroup skips the
+// tiles its own rows cannot see, and the window mask runs only on a tile
+// that crosses the window's lower edge.  A row can find every key of a
+// tile masked (the tile lies before its window) before it meets one it
+// sees; while a row's running max is still the mask value, its
+// probabilities are taken as 0 (the reference's scan gets 1 there and
+// clears it later with a correction of exp(-huge) = 0; the fp32 result is
+// the same).  No row is masked in full: its own diagonal key is kept.  The
+// launches without a window run the unwindowed code unchanged, so their
+// results are the same bit for bit: the fp32 schedule takes the window as
+// a template flag, the bf16 one as a kernel of its own in a translation
+// unit of its own (flash_attention_window.cu; the building blocks of both
+// in flash_wgmma.cuh).  In this unit, even as a kernel apart, the windowed
+// kernel moved the compiler's hoisting in the unwindowed D = 128 one: 8
+// bytes spilled and the causal qwen3-0.6b prefill ran 8 % slower.
+//
 // Bound (published H100 SXM peaks at its 700 W limit).  At the qwen3-0.6b
 // prefill shape (B 2, S 4096, H 16, KV 8, D 128, bf16, causal) the work is
 // 2*2*B*H*D*S(S+1)/2 = 137 GFLOP against ~101 MB of q, k, v and o: 0.139 ms
 // at the 989 TFLOP/s of bf16 tensor cores and 0.030 ms at 3.35 TB/s, so the
-// kernel is bound by operations, and only wgmma reaches that rate.
+// kernel is bound by operations, and only wgmma reaches that rate.  At the
+// zamba2-1.2b prefill shape (B 2, S 8192, H = KV = 32, D 64, bf16, causal,
+// window 4096) a head keeps W(W+1)/2 + (S - W)W = 25.17 M (q, k) pairs:
+// 4*D*(B*H)*25.17e6 = 4*64*64*25.17e6 = 412 GFLOP, 0.417 ms at 989 TFLOP/s,
+// against 268 MB of q, k, v and o (0.080 ms): bound by operations as well.
 //
 // bf16: the wgmma schedule (flash_fwd_wgmma).  One block of two warpgroups
 // per (128-row q tile, q head, batch); each warpgroup owns 64 q rows.  Under
@@ -106,11 +131,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-          int causal, float scale) {
+          int causal, int window, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 1;       // padded row of the q and k tiles
   constexpr int LP = BK + 1;      // padded row of the probability tile
@@ -147,12 +172,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 
   int kv_end = Sk;
+  int kv_begin = 0;
+  const int win = kWindow && causal ? window : 0;
   if (causal) {
     const int last_q = min(q0 + BQ, Sq) - 1;
     kv_end = min(Sk, offset + last_q + 1);
+    if (win > 0) kv_begin = max(0, offset + q0 - win + 1) / BK * BK;
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
     for (int i = tid; i < BK * D; i += kThreads) {
       const int r = i / D, d = i % D;
@@ -193,7 +221,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        if (kj >= Sk || (causal && qpos < kj)) s[i][j] = kNegInf;
+        if (kj >= Sk || (causal && qpos < kj) || (win > 0 && qpos - kj >= win))
+          s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -201,10 +230,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       const float corr = expf(m[i] - m_new);
+      // a row that has seen no key yet: its masked scores weigh 0
+      const float m_sub = (win > 0 && m_new == kNegInf) ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_sub);
         sum += p;
         Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
       }
@@ -244,205 +275,38 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <int D>
-int launch_d(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
-             int Sk, int H, int KV, int B, int causal, float scale, cudaStream_t stream) {
+template <int D, bool kWindow>
+int launch_w(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
+             int Sk, int H, int KV, int B, int causal, int window, float scale,
+             cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<float, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<float, D, kWindow>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<float, D><<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, Sq, Sk, H, KV,
-                                                         causal, scale);
+  flash_fwd<float, D, kWindow><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, lse, Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
+             int Sk, int H, int KV, int B, int causal, int window, float scale,
+             cudaStream_t stream) {
+  if (causal && window > 0)
+    return launch_w<D, true>(q, k, v, o, lse, Sq, Sk, H, KV, B, causal, window, scale, stream);
+  return launch_w<D, false>(q, k, v, o, lse, Sq, Sk, H, KV, B, causal, 0, scale, stream);
 }
 
 }  // namespace simt
 
-// ---------------------------------------------------------------------------
-// bf16: the wgmma schedule
-// ---------------------------------------------------------------------------
+}  // namespace
+
+#include "flash_wgmma.cuh"
+
+namespace {
 namespace wg {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;  // two warpgroups
-constexpr int BQ = 128;        // q rows per block, 64 per warpgroup
-constexpr int BKV = 64;        // keys per K/V tile
-constexpr int kStages = 2;     // K/V tiles in flight
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (size_t)(BQ + 2 * kStages * BKV) * D;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, the bytes past `src_bytes` zeroed
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// make this thread's generic-proxy writes to shared memory visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of wgmma's registers across it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a core-matrix (no swizzle) layout: the
-// start address, LBO = bytes between core matrices along the reduction (K)
-// dimension, SBO = bytes between core matrices along M or N.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d (64 x 64 fp32) = [d +] A (smem, K-major) * B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N fp32) += A (registers, bf16) * B (smem, MN-major), N = the head dim
-template <int N> struct WgmmaRS;
-
-template <> struct WgmmaRS<16> {
-  __device__ __forceinline__ static void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<32> {
-  __device__ __forceinline__ static void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-
-// Rows [0, ROWS) of a (rows, D) bf16 tile whose row r starts at src + r * ld,
-// into shared memory at dst as core matrices: row r, columns 8c..8c+7 at
-// byte ((r / 8) * (D / 8) + c) * 128 + (r % 8) * 16, i.e. chunk i of the
-// block's copies lands at byte 16 i.  Rows >= `valid` are zero-filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int valid,
-                                          long long ld, int tid) {
-  constexpr int kChunks = ROWS * D / 8;
-#pragma unroll
-  for (int u = 0; u < (kChunks + kThreads - 1) / kThreads; ++u) {
-    const int i = tid + u * kThreads;
-    if (kChunks % kThreads != 0 && i >= kChunks) break;
-    const int r = (i / D) * 8 + (i & 7);
-    const int c = (i >> 3) % (D / 8);
-    const bool ok = r < valid;
-    cp_async16(dst + 16 * i, ok ? src + r * ld + 8 * c : src, ok ? 16 : 0);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: 128 registers
@@ -636,24 +500,31 @@ extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                        float scale, void* stream) {
+                        int window, float scale, void* stream) {
   const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
               *vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(o);
   float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return simt::launch_d<16>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
-    case 32: return simt::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
-    case 64: return simt::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
-    case 128: return simt::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 16:
+      return simt::launch_d<16>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
+    case 32:
+      return simt::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
+    case 64:
+      return simt::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
+    case 128:
+      return simt::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                         float scale, void* stream) {
+                         int window, float scale, void* stream) {
+  if (causal && window > 0)
+    return flash_attention_window_bf16(q, k, v, o, lse, B, Sq, Sk, H, KV, D, window, scale,
+                                       stream);
   using wg::bf16;
   const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
              *vv = static_cast<const bf16*>(v);

@@ -3,8 +3,10 @@
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
 the Hopper kernel (``kernel.py``), after the checks below, or raises.
 ``flash_attention_lse`` is the same launch that also writes the rows'
-log-sum-exp.  ``flash_attention.launches`` counts the kernel launches of
-both.
+log-sum-exp.  ``window`` > 0 keeps, under ``causal``, only the last
+``window`` keys of each row (the reference's sliding window); without
+``causal`` it is ignored, as in the reference.
+``flash_attention.launches`` counts the kernel launches of both.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ _INT_MAX = 2 ** 31 - 1
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, window: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, Sq, H, D) and k, v (B, Sk, KV, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -32,6 +34,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, sq, sk) < 1 or max(b * sq * h * d, b * sk * kv * d) > _INT_MAX:
         raise ValueError(f"sizes out of range: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    if window < 0 or window > _INT_MAX:
+        raise ValueError(f"window must be >= 0 (0: none), got {window}")
     if causal and sk < sq:
         raise ValueError(f"causal attention needs Sk >= Sq, got Sq={sq}, "
                          f"Sk={sk}")
@@ -48,47 +52,49 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-         with_lse: bool):
+         with_lse: bool, window: int):
     """(o, lse or None): the plain version for CPU tensors, else the
     kernel after the checks, counted in ``flash_attention.launches``."""
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k and v must be on one device, got "
                          f"{sorted(map(str, devices))}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0 (0: none), got {window}")
     if q.device.type == "cpu":
         if with_lse:
-            return attention_lse_ref(q, k, v, causal)
-        return attention_ref(q, k, v, causal), None
+            return attention_lse_ref(q, k, v, causal, window)
+        return attention_ref(q, k, v, causal, window), None
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, window)
     o = torch.empty_like(q)
     lse = None
     if with_lse:
         b, sq, h, _ = q.shape
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        kernel.launch(q, k, v, o, causal, lse)
+        kernel.launch(q, k, v, o, causal, lse, window)
     flash_attention.launches += 1
     return o, lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in ``q.dtype``.
 
     All three tensors on the CPU: the plain version.  All three on one CUDA
     device: the kernel.  Anything else raises.
     """
-    return _run(q, k, v, causal, with_lse=False)[0]
+    return _run(q, k, v, causal, False, window)[0]
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True):
+                        causal: bool = True, window: int = 0):
     """``flash_attention``'s output and the rows' log-sum-exp (B, H, Sq)
     fp32, from the same launch (the training path's forward).  Counted in
     ``flash_attention.launches``."""
-    return _run(q, k, v, causal, with_lse=True)
+    return _run(q, k, v, causal, True, window)
 
 
 flash_attention.launches = 0

@@ -8,7 +8,8 @@ kernels themselves refuse what they do not take (``csrc/ssd_scan.cu``: for
 fp32 a state or chunk that does not fit one block; for bf16 N not a
 multiple of 8, P * N > 8192 or an operand not 16-byte aligned), which
 ``kernel.launch`` raises as a RuntimeError.  ``ssd_scan.launches`` counts
-the calls that launched the kernels.
+the calls that launched the kernels.  Training runs this forward inside
+``models/mamba2.py``'s ``SSDTrain``, whose backward is plain PyTorch.
 """
 from __future__ import annotations
 

@@ -45,10 +45,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         xc, dtc, Bc, Cc = xs[:, c], dts[:, c], Bs[:, c], Cs[:, c]
         dA = dtc * A32                                          # (B,Q,H)
         lcum = torch.cumsum(dA, dim=1)                          # inclusive
-        # intra-chunk term: decay(t, s) = exp(lcum_t - lcum_s) for s <= t
+        # intra-chunk term: decay(t, s) = exp(lcum_t - lcum_s) for s <= t,
+        # 0 above the diagonal.  The exponent is masked before the exp: the
+        # values are the reference's where-after-exp bit for bit, but its
+        # gradient meets no exp of the positive differences above the
+        # diagonal, which overflow in a long chunk and turn the
+        # reference's dt and A gradients into 0 * inf = NaN (ROADMAP
+        # Queue 3)
         diff = lcum[:, :, None, :] - lcum[:, None, :, :]        # (B,Q,Q,H)
-        decay = torch.where(tmask[None, :, :, None], torch.exp(diff),
-                            torch.zeros((), dtype=f32, device=x.device))
+        decay = torch.exp(torch.where(
+            tmask[None, :, :, None], diff,
+            torch.full((), float("-inf"), dtype=f32, device=x.device)))
         cb = torch.einsum("bqn,bsn->bqs", Cc, Bc)               # (B,Q,Q)
         w = cb[..., None] * decay * dtc[:, None, :, :]          # (B,Q,Q,H)
         y_intra = torch.einsum("bqsh,bshp->bqhp", w, xc)

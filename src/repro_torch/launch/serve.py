@@ -11,6 +11,11 @@ The decode steps run for real on the device; the per-replica service times
 are simulated with the paper's models.
 
     python -m repro_torch.launch.serve [--arch qwen3-0.6b] [--device cuda]
+
+``--arch`` takes qwen3-0.6b, mamba2-1.3b or zamba2-1.2b at the reference's
+TINY scale, whose ``attn_every=0`` makes zamba2 a pure SSM here exactly as
+in the reference; ``serve`` itself serves any ported config, the hybrid's
+ring-buffer window cache included.
 """
 from __future__ import annotations
 

@@ -11,8 +11,11 @@ straggling:
   4. async checkpoints every ``ckpt_every`` steps; restart resumes from the
      latest complete checkpoint (``checkpoint``, the reference's layout).
 
-The dense family trains (``--arch qwen3-0.6b``); the SSM, MoE and hybrid
-families are ROADMAP Queue 1 items and raise.
+The dense (``--arch qwen3-0.6b``), pure-SSM (``mamba2-1.3b``) and hybrid
+(``zamba2-1.2b``) families train; MoE and the embedding-input families
+are ROADMAP Queue 1 items and raise.  ``--scale tiny`` sets
+``attn_every=0``, as the reference's does, so a tiny zamba2 is a pure
+SSM.
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --scale tiny \\
         --steps 50 --n-workers 8 --straggle bimodal:10:0.3 \\
@@ -38,6 +41,8 @@ from ..optim import adamw
 from ..runtime import (CodedStepConfig, CodedTrainer, StragglerSim,
                        Telemetry, best_fr_policy)
 from .serve import TINY, parse_dist
+
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 SMALL = dict(num_layers=4, d_model=256, num_heads=8, num_kv_heads=4,
              d_ff=1024, vocab_size=2048, flash_block_kv=128,
@@ -104,11 +109,11 @@ def main(argv=None) -> TrainRun:
     device = resolve(args.device)
 
     cfg = get_config(args.arch)
-    if cfg.family != "dense":
+    if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (ROADMAP Queue 1: mamba2 training through the ssd path, "
-            f"MoE, zamba2 + sliding window); --arch takes the dense family")
+            f"yet (ROADMAP Queue 1: MoE, frontends); --arch takes the "
+            f"families {TRAINED_FAMILIES}")
     if args.scale == "tiny":
         cfg = cfg.scaled(**{k: v for k, v in TINY.items()
                             if hasattr(cfg, k)})

@@ -1,2 +1,3 @@
-"""The model zoo's serving path: dense transformer (``transformer``) and
-pure Mamba2 (``mamba2``, ``ssm_lm``) LMs behind one dispatch (``api``)."""
+"""The model zoo, served and trained: the dense transformer
+(``transformer``), and the pure Mamba2 and Zamba2-style hybrid LMs
+(``mamba2``, ``ssm_lm``), behind one dispatch (``api``)."""

@@ -4,14 +4,14 @@ the JAX package's ``models/api.py``).
     init_params / param_shapes / forward / train_forward / loss_fn
     init_cache / decode_step / padded_vocab
 
-``transformer`` serves the dense family, ``ssm_lm`` the pure-SSM family.
-The other families (MoE, hybrid, encoder, vlm, audio) are ROADMAP Queue 1
-items (MoE, zamba2 + sliding window, frontends) and raise here.
-``forward`` is the body of the reference's prefill cell
-(``launch/steps.py::build_prefill_cell``) and takes no gradient;
-``train_forward`` and ``loss_fn`` are the reference's differentiable
-``forward`` and ``loss_fn`` (dense family; the SSM family raises);
-``decode_step`` is the body of its ``serve_step``.
+``transformer`` serves and trains the dense family, ``ssm_lm`` the
+pure-SSM family (mamba2) and the SSM + shared-attention hybrid (zamba2).
+The other families (MoE, encoder, vlm, audio) are ROADMAP Queue 1 items
+(MoE, frontends) and raise here.  ``forward`` is the body of the
+reference's prefill cell (``launch/steps.py::build_prefill_cell``) and
+takes no gradient; ``train_forward`` and ``loss_fn`` are the reference's
+differentiable ``forward`` and ``loss_fn``; ``decode_step`` is the body of
+its ``serve_step``.
 """
 from __future__ import annotations
 
@@ -19,14 +19,14 @@ from .._device import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
 from . import ssm_lm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm_lm}
+_FAMILIES = {"dense": transformer, "ssm": ssm_lm, "hybrid": ssm_lm}
 
 
 def model_module(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1: MoE, zamba2 + sliding window, frontends); ported: "
+            f"Queue 1: MoE, frontends); ported: "
             f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 

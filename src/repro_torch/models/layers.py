@@ -99,19 +99,23 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
 
 
-def _mask(q_pos, kpos, causal: bool, kv_len) -> torch.Tensor:
+def _mask(q_pos, kpos, causal: bool, kv_len, window: int = 0) -> torch.Tensor:
     mask = torch.ones((q_pos.shape[0], kpos.shape[0]), dtype=torch.bool,
                       device=kpos.device)
     if causal:
         mask &= q_pos[:, None] >= kpos[None, :]
+        if window > 0:
+            mask &= q_pos[:, None] - kpos[None, :] < window
     if kv_len is not None:
         mask &= kpos[None, :] < kv_len
     return mask
 
 
-def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int):
+def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int,
+                     window: int = 0):
     """(dq, dk, dv) of the full-sequence attention: the reference's
-    ``_flash_train_bwd`` (fp32 path), blockwise over ``block_kv`` keys.
+    ``_flash_train_bwd`` (fp32 path), blockwise over ``block_kv`` keys,
+    with its causal and sliding-window mask.
     Each block's probabilities are rebuilt from ``lse``; no (Sq, Sk)
     tensor outlives its block.  K/V are read per q head (GQA) and dK/dV
     summed over each group of H / KV heads."""
@@ -138,8 +142,8 @@ def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int):
         kpos = start + torch.arange(kblk.shape[1], device=q.device)
         s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, kblk)
         if causal:
-            s = torch.where(_mask(q_pos, kpos, True, None)[None, None], s,
-                            neg)
+            s = torch.where(_mask(q_pos, kpos, True, None, window)[None, None],
+                            s, neg)
         p = torch.exp(s - lse[..., None])
         dv[:, start:start + block] = torch.einsum("bhqk,bqhd->bkhd", p, do32)
         dp = torch.einsum("bqhd,bkhd->bhqk", do32, vblk)
@@ -161,15 +165,16 @@ class FlashTrain(torch.autograd.Function):
     their KV heads (the kernel reads them in place).  Saved: q, k, v, o and
     lse, O(S) of them.  Backward: ``_flash_train_bwd``, plain PyTorch as
     the reference's is ``jnp`` (its Pallas kernel has no backward).  ``lse``
-    takes no gradient.
+    takes no gradient.  ``window`` > 0: the sliding window under
+    ``causal``, in both passes.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, block_kv: int):
+    def forward(ctx, q, k, v, causal: bool, block_kv: int, window: int = 0):
         out, lse = flash_attention_lse(q.contiguous(), k.contiguous(),
-                                       v.contiguous(), causal)
+                                       v.contiguous(), causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.block_kv = causal, block_kv
+        ctx.causal, ctx.block_kv, ctx.window = causal, block_kv, window
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -177,8 +182,8 @@ class FlashTrain(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_train_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                      ctx.block_kv)
-        return dq, dk, dv, None, None
+                                      ctx.block_kv, ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,20 +199,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through ``FlashTrain`` and its recompute backward when gradients are
     on and an input requires one (training), the forward alone otherwise
     (prefill); with ``kv_len`` it is the blockwise online softmax over
-    ``block_kv`` keys at a time.
+    ``block_kv`` keys at a time.  ``window`` > 0 is the sliding window
+    under ``causal`` on every branch (the kernel's own argument on the
+    full-sequence one); the hybrid's decode passes ``causal=False`` and
+    ``kv_len`` over its ring buffer, where the window is implicit.
     """
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention comes with the hybrid (zamba2), "
-            "ROADMAP Queue 1 (zamba2 + sliding window)")
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sq > 1 and kv_len is None:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashTrain.apply(q, k, v, causal, block_kv)[0]
+            return FlashTrain.apply(q, k, v, causal, block_kv, window)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal)
+                               causal, window)
     n_rep = h // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
@@ -220,8 +224,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 1:
         s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
         kpos = torch.arange(sk, device=q.device)
-        s = torch.where(_mask(q_pos, kpos, causal, kv_len)[None, None], s,
-                        neg)
+        s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
+                        s, neg)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
         return out.transpose(1, 2).to(q.dtype)
@@ -238,8 +242,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vblk = v[:, start:start + block].float()
         kpos = start + torch.arange(kblk.shape[1], device=q.device)
         s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk)
-        s = torch.where(_mask(q_pos, kpos, causal, kv_len)[None, None], s,
-                        neg)
+        s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
+                        s, neg)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)

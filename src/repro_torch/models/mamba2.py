@@ -1,9 +1,12 @@
 """Mamba2 (SSD -- state-space duality) blocks (a port of the JAX package's
-``models/mamba2.py``, serving path).
+``models/mamba2.py``).
 
-Prefill runs the chunked SSD scan through ``kernels/ssd_scan`` (the CUDA
-kernel on the card, the plain chunked form on the CPU); decode keeps the
-recurrent state (B, H, P, N) and a depthwise-conv tail buffer.
+Prefill and training run the chunked SSD scan through ``kernels/ssd_scan``
+(the CUDA kernel on the card, the plain chunked form on the CPU); under
+gradients it runs inside ``SSDTrain``, whose backward is the plain
+chunked form's autograd, as the reference's training is autodiff through
+``jnp``.  Decode keeps the recurrent state (B, H, P, N) and a
+depthwise-conv tail buffer.
 
 Shapes follow the paper's notation: d_in = expand * d_model, heads
 H = d_in / head_dim, head dim P, state size N, n_groups G = 1 (B and C
@@ -22,10 +25,10 @@ from ..kernels.ssd_scan import ssd_chunked, ssd_scan
 from . import layers as L
 from .params import dtype_of
 
-__all__ = ["CONV_K", "N_GROUPS", "causal_conv", "causal_conv_step", "dims",
-           "init_block_state", "init_layer_params", "layer_shapes",
-           "mamba2_block", "mamba2_block_decode", "ssd_chunked",
-           "ssd_decode_step"]
+__all__ = ["CONV_K", "N_GROUPS", "SSDTrain", "causal_conv",
+           "causal_conv_step", "dims", "init_block_state",
+           "init_layer_params", "layer_shapes", "mamba2_block",
+           "mamba2_block_decode", "ssd_chunked", "ssd_decode_step"]
 
 CONV_K = 4   # depthwise causal conv kernel width (Mamba default)
 N_GROUPS = 1
@@ -148,6 +151,42 @@ def _finish(cfg: ModelConfig, lp: Dict[str, torch.Tensor], y: torch.Tensor,
     return y @ lp["out_proj"].to(y.dtype)
 
 
+class SSDTrain(torch.autograd.Function):
+    """The SSD scan with a recompute backward: the training route of
+    ``ssd_scan``.
+
+    Forward: ``ssd_scan`` on (x, dt, A, B, C), the CUDA kernel on a CUDA
+    tensor, the plain chunked form on the CPU.  Saved: the five inputs,
+    O(S) of them.  Backward: the plain ``ssd_chunked`` recomputed in fp32
+    under autograd, and its gradients for the inputs that need one, cast
+    back to their dtypes.  This is the reference's autodiff through
+    ``jnp`` (its Pallas kernel has no backward); the chunks' (B, Q, Q, H)
+    decay and weight tensors live only inside the backward, never among
+    the step's saved activations.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                        Bm.contiguous(), Cm.contiguous(), chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_(n)
+                      for t, n in zip(inputs, need)]
+            y = ssd_chunked(*leaves, ctx.chunk)[0]
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy.float()))
+        out = [next(grads).to(t.dtype) if n else None
+               for t, n in zip(inputs, need)]
+        return (*out, None)
+
+
 def _dt_and_A(lp, dtraw):
     dt = _softplus(dtraw.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
@@ -156,7 +195,9 @@ def _dt_and_A(lp, dtraw):
 
 def mamba2_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence mamba2 block (prefill): one ``ssd_scan`` per call."""
+    """Full-sequence mamba2 block (train / prefill): one ``ssd_scan`` per
+    call, inside ``SSDTrain`` when gradients are on and an input of the
+    scan requires one (training), bare otherwise (prefill)."""
     d_in, heads, p, n = dims(cfg)
     b, s = x.shape[:2]
     z, xin, Braw, Craw, dtraw = _project(cfg, lp, x)
@@ -172,8 +213,12 @@ def mamba2_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
     dt_p = F.pad(dt, (0, 0, 0, pad)) if pad else dt
     B_p = F.pad(Bc, (0, 0, 0, pad)) if pad else Bc
     C_p = F.pad(Cc, (0, 0, 0, pad)) if pad else Cc
-    y = ssd_scan(xh_p.contiguous(), dt_p.contiguous(), A.contiguous(),
-                 B_p.contiguous(), C_p.contiguous(), chunk=chunk)[:, :s]
+    args = (xh_p, dt_p, A, B_p, C_p)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y = SSDTrain.apply(*args, chunk)
+    else:
+        y = ssd_scan(*(t.contiguous() for t in args), chunk=chunk)
+    y = y[:, :s]
     return _finish(cfg, lp, y, xh, z)
 
 

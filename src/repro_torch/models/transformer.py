@@ -195,6 +195,14 @@ def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
     return _forward(cfg, params, tokens, positions, remat="none")
 
 
+def check_remat(cfg: ModelConfig) -> None:
+    """Raise for a ``cfg.remat`` the training paths do not port."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported (\"dots\" is a "
+            f"ROADMAP Queue 1 item); use \"full\" or \"none\"")
+
+
 def train_forward(cfg: ModelConfig, params: TransformerLM,
                   tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -206,10 +214,7 @@ def train_forward(cfg: ModelConfig, params: TransformerLM,
     ``"none"`` keeps every activation.  ``"dots"`` (save the matmul
     outputs) is not ported and raises.
     """
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} is not ported (\"dots\" is a "
-            f"ROADMAP Queue 1 item); use \"full\" or \"none\"")
+    check_remat(cfg)
     return _forward(cfg, params, tokens, positions, cfg.remat)
 
 

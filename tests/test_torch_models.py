@@ -31,7 +31,7 @@ from repro_torch.models.transformer import padded_vocab
 LAYER_TOL = 2e-5
 MODEL_TOL = 1e-4
 DECODE_TOL = 2e-4                   # tests/test_models_smoke.py:114
-ARCHS = ["qwen3-0.6b", "mamba2-1.3b"]
+ARCHS = ["qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"]
 
 # a copy of tests/test_models_smoke.py:18-41 (reduced dims, family bits kept)
 REDUCE = dict(
@@ -163,9 +163,15 @@ def test_attention_blockwise_kv_len_branch_matches_reference(block_kv):
 
 
 def test_attention_window_raises():
-    q, k, v = map(_t, _qkv(6, 8, 8))
-    with pytest.raises(NotImplementedError, match="window"):
-        layers.attention(q, k, v, window=4)
+    """A negative window raises; a sliding window of 4 over 8 causal rows
+    is the reference's windowed attention (the window is ported)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models import layers as ref
+    q, k, v = _qkv(6, 8, 8)
+    with pytest.raises(ValueError, match="window"):
+        layers.attention(_t(q), _t(k), _t(v), window=-1)
+    _close(layers.attention(_t(q), _t(k), _t(v), window=4),
+           ref.attention(*map(jnp.asarray, (q, k, v)), window=4), LAYER_TOL)
 
 
 def test_init_laws():
@@ -300,13 +306,13 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         api.init_params(qwen.scaled(num_experts=4, experts_per_token=2),
                         generator(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        api.init_params(reduced("mamba2-1.3b").scaled(attn_every=2),
+    with pytest.raises(NotImplementedError, match="frontends"):
+        api.init_params(qwen.scaled(embedding_inputs=True),
                         generator(0, "cpu"))
     with pytest.raises(NotImplementedError, match="family 'moe'"):
         api.forward(qwen.scaled(family="moe"), None, None)
-    with pytest.raises(KeyError, match="zamba2"):
-        get_config("zamba2-1.2b")
+    with pytest.raises(KeyError, match="dbrx-132b"):
+        get_config("dbrx-132b")
 
 
 # --------------------------------------------------------------------------

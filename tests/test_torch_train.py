@@ -36,6 +36,7 @@ from repro_torch.core.distributions import BiModal, Pareto, ShiftedExp
 from repro_torch.core.policy import Policy, RetryPolicy
 from repro_torch.data import pipeline as pdata
 from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                 attention_ref,
                                                  flash_attention,
                                                  flash_attention_lse)
 from repro_torch.launch import serve as pserve
@@ -170,8 +171,18 @@ def test_attention_without_grad_takes_the_forward_alone():
     # the two plain versions normalise in another order: fp32 rounding
     torch.testing.assert_close(o, flash_attention(q, k, v, True),
                                atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        layers.attention(q, k, v, window=4)
+    # the sliding window (ported with the hybrid) takes the same routes:
+    # the kernel's plain version without a gradient, its lse route in
+    # FlashTrain's forward
+    q = q.detach()
+    assert torch.equal(layers.attention(q, k, v, window=4),
+                       attention_ref(q, k, v, True, 4))
+    o, lse = flash_attention_lse(q, k, v, True, 4)
+    o2, lse2 = attention_lse_ref(q, k, v, True, 4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(layers.attention(q.requires_grad_(True), k, v,
+                                        window=4).detach(), o)
+    assert not torch.equal(o, attention_lse_ref(q, k, v, True)[0])
 
 
 # --------------------------------------------------------------------------
@@ -260,11 +271,16 @@ def test_serving_forward_takes_no_gradient_and_ssm_training_raises():
     toks = torch.zeros((1, 8), dtype=torch.long)
     assert api.forward(CFG, model, toks).grad_fn is None
     assert api.train_forward(CFG, model, toks).grad_fn is not None
+    # the SSM family now trains: its loss takes a gradient
     ssm = get_config("mamba2-1.3b").scaled(num_layers=1, d_model=64,
                                            ssm_state=16, ssm_head_dim=16,
-                                           vocab_size=128)
+                                           vocab_size=128, ssm_chunk=8)
+    ssm_model = api.init_params(ssm, generator(0, CPU), trainable=True)
+    assert api.forward(ssm, ssm_model, toks).grad_fn is None
+    assert api.loss_fn(ssm, ssm_model, toks, toks).grad_fn is not None
+    # a family that is still not ported raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn(ssm, api.init_params(ssm, generator(0, CPU)), toks, toks)
+        api.loss_fn(CFG.scaled(family="moe"), model, toks, toks)
 
 
 def test_param_shapes_match_reference():
@@ -837,9 +853,15 @@ def test_launch_train_on_the_cpu_plans_as_the_reference(capsys, tmp_path):
     assert ptrain.exo_delta(ShiftedExp(1.0, 2.0), 1.0) is None
 
 
-def test_launch_train_refuses_other_families_and_the_missing_card():
+def test_launch_train_refuses_other_families_and_the_missing_card(
+        monkeypatch):
+    with pytest.raises(KeyError, match="ROADMAP"):
+        ptrain.main(["--arch", "dbrx-132b", "--device", CPU])
+    moe = get_config("qwen3-0.6b").scaled(family="moe")
+    monkeypatch.setattr(ptrain, "get_config", lambda name: moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptrain.main(["--arch", "mamba2-1.3b", "--device", CPU])
+        ptrain.main(["--arch", "qwen3-0.6b", "--device", CPU])
+    monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ptrain.main(["--scale", "tiny", "--steps", "1"])
