@@ -21,7 +21,12 @@ Phases, none of whose failures is caught (any fault exits non-zero):
      ragged lengths and causal rows offset by Sk - Sq, and the qwen3-0.6b
      shapes of phase 5 (H 16, KV 8, D 128; B 2 x 64 tokens in fp32, B 2 x
      S 4096 in bf16), against ``F.scaled_dot_product_attention``; at the
-     B 2 x S 4096 shape two planted faults must fail the tolerance;
+     B 2 x S 4096 shape two planted faults must fail the tolerance; head
+     dim 80 in both schedules and GQA 16 on ragged shapes, and phase 11's
+     prefill shapes (B 2 x S 4096 bf16: hubert-xlarge's H = KV = 16, D 80,
+     bidirectional; qwen3-moe-235b-a22b's H 64 over KV 4, D 128, causal)
+     with and without lse against the plain version in 16-head slices,
+     where the scale of D 128 planted at D 80 must fail the tolerance;
    - ``ssd_scan`` on the reference grid (2,64,3,16,8) and (1,128,2,32,16)
      x chunk {4, 16, 64} and the mamba2-1.3b shape of phase 5's fp32 check
      (H 64, P 64, N 128; B 2 x 64 tokens) in fp32 (the SIMT schedule); the
@@ -158,7 +163,28 @@ Phases, none of whose failures is caught (any fault exits non-zero):
       launches a step (96 scans; 76 scans and 6 flash), a falling, finite
       loss, zamba2's checkpoint restored bit for bit, a forward / backward
       / AdamW split and one profiled step.
-11. One JSON line listing every kernel with its launches and times; the
+11. The rest of the zoo at full width (the head-dim-80 and GQA-16 routes
+    of ``flash_attention``), each model freeing the card before the next:
+   a. qwen3-moe-235b-a22b, 4 of its 94 layers (d 4096, 64 heads over 4
+      KV heads, head dim 128, 128 experts, top-8, d_ff 1536, vocab
+      151936, fp32 parameters: ~45 GB): ``moe_ffn`` on one full-width
+      layer (512 fp32 tokens, capacity factor 1, so busy experts drop)
+      against a plain MoE written in this file, the dropped pairs counted
+      on both sides; a 64-token fp32 prefill against 64 decode steps with
+      the capacity factor at E / k (nothing drops); the bf16 prefill at B
+      2 x S 4096 (first and warm call, 4 flash launches each counted, one
+      more under ``torch.profiler``, its device time split into flash, the
+      expert products, the router and dispatch / combine GEMMs and the
+      rest); the hedged serving loop and one decode step, as phase 5;
+   b. hubert-xlarge at full width and depth (48 layers, d 1280, 16 heads
+      of 80, 1.26 B fp32 parameters): the bidirectional bf16 prefill of
+      ``frontends.synthetic_frame_embeddings`` at B 2 x S 4096 (48
+      launches each, profiled); a 2-layer cut's fp32 forward of 64 frames
+      on the card against the same module on the host;
+   c. dbrx-132b, 2 of its 40 layers (16 experts, top-4, d 6144, 48 heads
+      over 8, d_ff 10752): the bf16 prefill at B 2 x S 4096 (2 launches
+      each, profiled).
+12. One JSON line listing every kernel with its launches and times; the
     last line is the device record.
 """
 from __future__ import annotations
@@ -183,6 +209,8 @@ REPLACES = "src/repro/kernels/coded_matmul/kernel.py:52"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_WINDOW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention_window.cu")
+FLASH_D80_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_d80.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:63"
@@ -222,8 +250,24 @@ FLASH_GRID = [((2, 256, 256, 4, 2, 32), torch.float32, True),
               ((2, 129, 129, 4, 2, 64), torch.bfloat16, True),
               ((2, 129, 129, 4, 2, 64), torch.bfloat16, False),
               ((2, 5, 70, 4, 4, 64), torch.bfloat16, True),
-              ((2, 65, 130, 16, 8, 128), torch.bfloat16, True)]
+              ((2, 65, 130, 16, 8, 128), torch.bfloat16, True),
+              # head dim 80 (hubert-xlarge), ragged, both schedules, and
+              # GQA 16 (qwen3-moe-235b-a22b's 64 heads over 4)
+              ((2, 333, 333, 16, 16, 80), torch.float32, False),
+              ((2, 100, 300, 4, 2, 80), torch.float32, True),
+              ((2, 200, 200, 16, 16, 80), torch.bfloat16, False),
+              ((2, 65, 130, 16, 4, 80), torch.bfloat16, True),
+              ((2, 200, 200, 64, 4, 128), torch.bfloat16, True)]
 FLASH_MAIN = ((2, 4096, 4096, 16, 8, 128), torch.bfloat16, True)
+# phase 3, the rest of the zoo's prefill shapes (phase 11): hubert-xlarge
+# (H = KV = 16, D 80, bidirectional) and qwen3-moe-235b-a22b (H 64 over 4
+# KV heads, D 128, causal), B 2 x S 4096 bf16, with and without lse,
+# against the plain version in 16-head slices (its fp32 scores of all 64
+# heads at once are 8.6 GB a tensor); at D 80 a planted fault, the scale
+# taken from D = 128, must fail the tolerance
+FLASH_ZOO = {"hubert-xlarge": ((2, 4096, 4096, 16, 16, 80), False),
+             "qwen3-moe-235b-a22b": ((2, 4096, 4096, 64, 4, 128), True)}
+FLASH_ZOO_HEADS = 16
 # |out - ref| <= atol + rtol |ref|, (atol, rtol) by dtype.  fp32: the
 # reference's 2e-5 (tests/test_kernels.py:48).  bf16: both sides compute in
 # fp32 and round the output once to bf16, so they differ by at most one
@@ -363,6 +407,32 @@ SSM_BWD_SHAPE = (1, 8192, 32, 64)
 # shared-attention site's flash once); only zamba2 writes its checkpoint
 SSM_TRAIN = {"mamba2-1.3b": dict(ssd_scan=96, flash_attention=0),
              "zamba2-1.2b": dict(ssd_scan=76, flash_attention=6)}
+# phase 11: the rest of the zoo at full width.  qwen3-moe-235b-a22b cut
+# to 4 of its 94 layers (2.49 B parameters, 9.95 GB fp32 a layer, plus
+# 4.98 GB of embed and lm_head: ~45 GB), hubert-xlarge whole (48 layers,
+# 1.26 B parameters), dbrx-132b cut to 2 of its 40 (13.0 GB a layer plus
+# 4.9 GB); each bf16 prefill at B 2 x S 4096
+ZOO_MOE, ZOO_ENCODER, ZOO_DBRX = ("qwen3-moe-235b-a22b", "hubert-xlarge",
+                                  "dbrx-132b")
+ZOO_LAYERS = {ZOO_MOE: 4, ZOO_DBRX: 2}
+ZOO_PREFILL = (2, 4096)
+# moe_ffn on the card against the phase's own plain MoE: one full-width
+# qwen3-moe layer, 512 fp32 tokens (two groups of 256), capacity factor 1:
+# 16 slots an expert against 16 routed on average, so busy experts drop.
+# Both sides compute in fp32 (TF32 off) and sum in other orders (the
+# dispatch products and batched expert GEMMs against a GEMM per expert):
+# 1e-4 of max|y| (tests/test_torch_models.py's model tolerance)
+ZOO_MOE_CHECK = dict(batch=2, seq=256, capacity_factor=1.0)
+ZOO_MOE_TOL = 1e-4
+# prefill against decode (fp32, B 2 x 64 tokens) with the capacity factor
+# raised to E / k, so that no group of either path drops a token: with
+# drops, a prefill group of 128 tokens and a decode group of 2 route
+# differently by design
+ZOO_DECODE_TOKENS = 64
+# hubert's fp32 forward on the card against the same module on the host:
+# a 2-layer cut, 64 frames; cuBLAS and the flash kernel's fp32 schedule
+# against MKL and the plain version, 1e-4 of max|logits|
+ZOO_HOST_LAYERS, ZOO_HOST_FRAMES, ZOO_HOST_TOL = 2, 64, 1e-4
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -668,6 +738,75 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
     return row
 
 
+def zoo_flash_compare(arch: str, gen, reps: int) -> dict:
+    """Phase 3, the rest of the zoo: the flash kernel at ``arch``'s
+    prefill shape (FLASH_ZOO), without and with lse, against its plain
+    version in FLASH_ZOO_HEADS-head slices: o within FLASH_TOL, lse within
+    LSE_TOL, both launches' o equal.  At D 80 an output made with the scale
+    of D 128 must fail the check.  Then the kernel's (with and without
+    lse), the plain version's and SDPA's times in turns."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_lse)
+    (B, Sq, Sk, H, KV, D), causal = FLASH_ZOO[arch]
+    dtype = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
+    plain = lambda *a: sliced_plain(*a, heads=FLASH_ZOO_HEADS)  # noqa: E731
+    out = flash_attention(q, k, v, causal)
+    out_l, lse = flash_attention_lse(q, k, v, causal)
+    ref, ref_lse = plain(q, k, v, causal, 0, True)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    atol, rtol = FLASH_TOL[dtype]
+    ratio = max(excess(out, ref, atol, rtol), excess(out_l, ref, atol, rtol))
+    max_abs = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    same = torch.equal(out, out_l)
+    ok = ratio <= 1 and lse_err <= LSE_TOL[dtype] and same
+    if D == 80:
+        hs = slice(0, FLASH_ZOO_HEADS)
+        # scores scaled by 1/sqrt(128) where 1/sqrt(80) is right
+        faulted = plain(q[:, :, hs].float() * math.sqrt(80 / 128),
+                        k[:, :, hs].float(), v[:, :, hs].float(), causal, 0,
+                        False)
+        e = excess(faulted, ref[:, :, hs], atol, rtol)
+        print(f"    planted fault, the scale of D 128 at D 80: max |out-ref| "
+              f"/ limit = {e:.3g}  {'caught' if e > 1 else 'MISSED'}",
+              flush=True)
+        assert e > 1, "the tolerance misses a planted fault: the D 128 scale"
+        del faulted
+    del out, out_l, lse, ref, ref_lse
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fns = {"plain": lambda: plain(q, k, v, causal, 0, False),
+           "kernel": lambda: flash_attention(q, k, v, causal),
+           "lse": lambda: flash_attention_lse(q, k, v, causal),
+           "library": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    t = timed_turns(fns, ("plain", "kernel", "lse", "library", "library",
+                          "lse", "kernel", "plain"),
+                    {"plain": max(1, reps // 5), "kernel": reps, "lse": reps,
+                     "library": reps})
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    ops = 4.0 * B * H * kept_pairs(Sq, Sk, causal) * D
+    b_ms, b_by = roofline(nbytes, ops, dtype)
+    print(f"  flash {arch} B={B} S={Sq} H={H} KV={KV} D={D} "
+          f"{'causal' if causal else 'bidirectional'} bf16 o /limit "
+          f"{ratio:.3f} (tol {atol:g} abs + {rtol:g} rel), max|lse-ref| "
+          f"{lse_err:.3e} (tol {LSE_TOL[dtype]:g}), o with = without lse "
+          f"{same}  kernel {t['kernel']:.4f} ms, with lse {t['lse']:.4f} ms  "
+          f"plain {t['plain']:.4f} ms ({FLASH_ZOO_HEADS}-head slices)  sdpa "
+          f"{t['library']:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+          f"{rate(t['kernel'], nbytes, ops, b_ms, b_by)})  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return dict(max_abs_err=max_abs, lse_err=lse_err, ok=ok, ms=t["kernel"],
+                lse_ms=t["lse"], plain_ms=t["plain"], library_ms=t["library"],
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def ssd_inputs(shape, dtype, gen, model_law: bool):
     """x, dt, A, B, C on the card.  The reference test's laws (dt =
     softplus(normal), A = -exp(normal)) or the model's (dt in [1e-3, 0.1],
@@ -807,6 +946,10 @@ def model_kernel_phase(seed: int) -> dict:
     flash = flash_compare(*FLASH_MAIN, gen, reps=5, plant=True)
     if not flash["ok"]:
         failures.append(("flash_attention", FLASH_MAIN))
+    zoo = {arch: zoo_flash_compare(arch, gen, reps=10) for arch in FLASH_ZOO}
+    failures += [("flash_attention", FLASH_ZOO[a]) for a, row in zoo.items()
+                 if not row["ok"]]
+    torch.cuda.empty_cache()
     print("ssd_scan:")
     for shape, chunk in SSD_GRID:
         if not ssd_compare(shape, chunk, torch.float32, gen, reps=10)["ok"]:
@@ -822,7 +965,8 @@ def model_kernel_phase(seed: int) -> dict:
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{failures}")
-    return {"flash_attention": flash, "ssd_scan": ssd}
+    return {"flash_attention": flash, "ssd_scan": ssd,
+            **{("flash_attention", arch): row for arch, row in zoo.items()}}
 
 
 def main_path_phase(cfg, seed: int) -> dict:
@@ -901,17 +1045,20 @@ def main_path_phase(cfg, seed: int) -> dict:
     return launches
 
 
-def profile_call(label: str, fn):
+def profile_call(label: str, fn, op_groups=None):
     """One more call of ``fn`` under ``torch.profiler``: the device
     operations it launched, device time by kernel group and the device's
-    idle share of the call's span.  Returns (device operations, busy ms,
-    span ms), or None when the profiler saw no device time."""
+    idle share of the call's span.  ``op_groups``: a function of a PyTorch
+    operation's name and input shapes giving a group name or None; the
+    device time of the operations in each group is printed as well (the
+    shapes are recorded for it).  Returns (device operations, busy ms, span
+    ms), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=op_groups is not None) as prof:
         start.record()
         fn()
         end.record()
@@ -947,6 +1094,19 @@ def profile_call(label: str, fn):
     for e in top:
         print(f"    top: {e.self_device_time_total / 1e3:9.3f} ms x{e.count:4d} "
               f"{e.key[:90]}")
+    if op_groups is not None:
+        by_op = {}
+        for e in prof.key_averages(group_by_input_shape=True):
+            group = (e.device_type == DeviceType.CPU
+                     and op_groups(e.key, e.input_shapes))
+            if group:
+                by_op[group] = by_op.get(group, 0.0) + e.device_time_total
+        for group, us in sorted(by_op.items()):
+            print(f"    of which {group:28s} {us / 1e3:9.3f} ms  "
+                  f"{us / 1e3 / span_ms:6.1%}")
+        if not any(by_op.values()):
+            print("    the profiler linked no device time to the operations: "
+                  "split not measured")
     return sum(e.count for e in kernels), busy_ms, span_ms
 
 
@@ -2354,6 +2514,281 @@ def ssm_phase(seed: int) -> dict:
     }
 
 
+def plain_moe(x, router, w_gate, w_up, w_down, top_k: int, cap: int,
+              group: int):
+    """An MoE FFN written apart from ``models/moe.py``: per token its top-k
+    experts by softmax probability (``torch.topk``; no ties among random
+    fp32 logits), the weights renormalised over them, a dense SwiGLU per
+    expert; within each group of ``group`` tokens an expert keeps the first
+    ``cap`` of its (slot, token) pairs in slot-major order and drops the
+    rest.  Returns (y like x, dropped pairs)."""
+    import torch.nn.functional as F
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    probs = torch.softmax((xt @ router).float(), dim=-1)
+    vals, idx = torch.topk(probs, top_k, dim=-1)
+    vals = vals / vals.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(xt)
+    dropped = 0
+    for g0 in range(0, xt.shape[0], group):
+        picks = idx[g0:g0 + group].T                    # (k, g)
+        for e in range(router.shape[1]):
+            slot, tok = torch.nonzero(picks == e, as_tuple=True)
+            dropped += max(0, len(tok) - cap)
+            slot, tok = slot[:cap], tok[:cap] + g0
+            if len(tok) == 0:
+                continue
+            h = F.silu(xt[tok] @ w_gate[e]) * (xt[tok] @ w_up[e])
+            y.index_add_(0, tok, vals[tok, slot][:, None].to(x.dtype)
+                         * (h @ w_down[e]))
+    return y.view(x.shape), dropped
+
+
+def moe_op_groups(cfg):
+    """``profile_call``'s operation groups for an MoE model, by the right
+    operand of each batched GEMM: the expert products ((E, d, f) or
+    (E, f, d)), the router ((1, d, E)) and the dispatch and combine
+    products (the groups of tokens)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def group(name: str, shapes):
+        if name != "aten::bmm" or len(shapes) < 2 or len(shapes[1]) != 3:
+            return None
+        if tuple(shapes[1][1:]) in ((d, f), (f, d)):
+            return "expert products (bmm)"
+        if tuple(shapes[1][1:]) == (d, e):
+            return "router (bmm)"
+        return "dispatch / combine (bmm)"
+    return group
+
+
+def zoo_model(arch: str, gen, **overrides):
+    """``arch`` at full width (the phase's layer cut, ``overrides``), made
+    on the card from ``gen``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    cfg = cfg.scaled(**{"num_layers": ZOO_LAYERS.get(arch, cfg.num_layers),
+                        **overrides})
+    layers = cfg.num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"{arch}: {layers} of {get_config(arch).num_layers} layers, "
+          f"{n_params / 1e9:.3f} B {cfg.param_dtype} parameters ({gb:.2f} "
+          f"GB), made on the card in {time.perf_counter() - t0:.2f} s (host "
+          f"clock)", flush=True)
+    return cfg, model
+
+
+def zoo_prefill(cfg, model, inputs, label: str, op_groups=None) -> int:
+    """The timed bf16 prefill (first and warm call, CUDA events) and one
+    more under ``torch.profiler``; each forward launches the flash kernel
+    once a layer, counted from 0.  Returns the launches of the three."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api
+    launches = 0
+
+    def forward():
+        nonlocal launches
+        flash_attention.launches = 0
+        logits = api.forward(cfg, model, inputs)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == cfg.num_layers, \
+            (label, flash_attention.launches)
+        launches += flash_attention.launches
+        assert logits.shape == (*inputs.shape[:2], api.padded_vocab(cfg))
+        assert logits.dtype == torch.bfloat16
+        assert torch.isfinite(logits).all()
+        return logits
+
+    ms = []
+    for _ in ("first", "warm"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    b, s = inputs.shape[:2]
+    print(f"  prefill ({label}, {cfg.compute_dtype}, B {b} x S {s}, "
+          f"flash_attention launches {cfg.num_layers} each): first call "
+          f"{ms[0]:.2f} ms, warm {ms[1]:.2f} ms = {b * s / ms[1] * 1e3:.0f} "
+          f"tokens/s (CUDA events)", flush=True)
+    profile_call("prefill", forward, op_groups)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_moe_checks(cfg, model, gen) -> None:
+    """Phase 11 a: ``moe_ffn`` against ``plain_moe`` on one full-width
+    layer with drops, then prefill against token-by-token decode in fp32
+    with nothing dropped."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, moe
+    b, s = ZOO_MOE_CHECK["batch"], ZOO_MOE_CHECK["seq"]
+    factor = ZOO_MOE_CHECK["capacity_factor"]
+    lp = model.layers.layer(0)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    args = (x, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"])
+    k, e = cfg.experts_per_token, cfg.num_experts
+    g = min(256, b * s)
+    cap = moe.expert_capacity(g, e, k, factor)
+    out = moe.moe_ffn(*args, top_k=k, capacity_factor=factor)
+    dispatch, _ = moe.route(x.reshape(-1, g, cfg.d_model), lp["router"], k,
+                            cap)
+    dropped = b * s * k - int(dispatch.sum())
+    ref, ref_dropped = plain_moe(*args, k, cap, g)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    ok = err <= ZOO_MOE_TOL * scale and dropped == ref_dropped > 0
+    print(f"  moe_ffn (fp32, {b * s} tokens in groups of {g}, E {e}, top-{k}, "
+          f"capacity factor {factor:g}: {cap} slots an expert) against the "
+          f"plain MoE: max|diff| {err:.3e}, max|y| {scale:.3f} (tol "
+          f"{ZOO_MOE_TOL:g} of max|y|); dropped (token, expert) pairs: "
+          f"moe_ffn {dropped}, plain {ref_dropped} of {b * s * k}  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    assert ok, (err, scale, dropped, ref_dropped)
+    del x, args, out, ref, dispatch
+
+    c32 = cfg.scaled(compute_dtype="float32", capacity_factor=e / k)
+    toks = torch.randint(0, cfg.vocab_size, (2, ZOO_DECODE_TOKENS),
+                         generator=gen, device="cuda")
+    flash_attention.launches = 0
+    full = api.forward(c32, model, toks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == cfg.num_layers
+    cache = api.init_cache(c32, 2, ZOO_DECODE_TOKENS, dtype="float32",
+                           device="cuda")
+    steps = []
+    for t in range(ZOO_DECODE_TOKENS):
+        lg, cache = api.decode_step(c32, model, cache, toks[:, t:t + 1], t)
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, dim=1)
+    diff = (dec - full).abs()
+    ok = bool((diff <= PREFILL_TOL + PREFILL_TOL * full.abs()).all())
+    print(f"  prefill (fp32, B 2 x {ZOO_DECODE_TOKENS} tokens, capacity "
+          f"factor E/k = {e / k:g}: no drops) against {ZOO_DECODE_TOKENS} "
+          f"decode steps: max|diff| {float(diff.max()):.3e}, max|logits| "
+          f"{float(full.abs().max()):.3f} (tol {PREFILL_TOL:g} abs + rel)  "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    assert ok, float(diff.max())
+    del full, dec, diff, cache, steps
+    torch.cuda.empty_cache()
+
+
+def zoo_serve(cfg, model, gen) -> None:
+    """The hedged serving loop at the reference's defaults, and one decode
+    step of its shape timed, as phase 5 runs them."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    dist = serve.parse_dist("pareto:0.05:1.8")
+    r = serve.plan_replicas(dist, 4)
+    prompt = torch.randint(1, cfg.vocab_size, (4, 32), generator=gen,
+                           device="cuda")
+    res = serve.serve(cfg, model, prompt, 32, dist, r)
+    assert res.tokens.shape == (4, 32)
+    assert ((res.tokens >= 0) & (res.tokens < api.padded_vocab(cfg))).all()
+    print(f"  serve: batch 4, prompt 32 (decode steps {res.prompt_s:.3f} s), "
+          f"gen 32 in {res.gen_s:.3f} s = {res.tokens_per_s:.1f} tokens/s "
+          f"(host clock), r = {r}; simulated service latency: hedged "
+          f"{res.sim_latency:.2f} vs unhedged E {res.unhedged:.2f}", flush=True)
+    print(f"  greedy tokens, row 0: {res.tokens[0].tolist()}")
+    cache = api.init_cache(cfg, 4, 64, dtype="float32", device="cuda")
+    tok = prompt[:, :1]
+    _, cache = api.decode_step(cfg, model, cache, tok, 0)
+    step_ms = time_ms(lambda: api.decode_step(cfg, model, cache, tok, 1),
+                      reps=10)
+    print(f"  decode step (batch 4, position 1, {cfg.compute_dtype}): "
+          f"{step_ms:.3f} ms a step (CUDA events, 10 steps)", flush=True)
+    del cache
+
+
+def zoo_host_check(gen) -> None:
+    """Phase 11 b: hubert's fp32 forward of a 2-layer cut on the card
+    against the same module and frames on the host."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, frontends
+    cfg, model = zoo_model(ZOO_ENCODER, gen, compute_dtype="float32",
+                           num_layers=ZOO_HOST_LAYERS)
+    host = api.model_class(cfg)(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    x = frontends.synthetic_frame_embeddings(cfg, gen, 2, ZOO_HOST_FRAMES,
+                                             "float32")
+    flash_attention.launches = 0
+    out = api.forward(cfg, model, x)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == ZOO_HOST_LAYERS
+    ref = api.forward(cfg, host, x.cpu())
+    scale = float(ref.abs().max())
+    err = float((out.cpu() - ref).abs().max())
+    ok = err <= ZOO_HOST_TOL * scale
+    print(f"  fp32 forward, {ZOO_HOST_LAYERS}-layer cut, B 2 x "
+          f"{ZOO_HOST_FRAMES} frames, bidirectional: card against host "
+          f"max|diff| {err:.3e}, max|logits| {scale:.3f} (tol "
+          f"{ZOO_HOST_TOL:g} of max)  {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    assert ok, (err, scale)
+    del model, host, out
+
+
+def zoo_phase(seed: int) -> dict:
+    """Phase 11: the rest of the zoo at full width.  Returns the flash
+    kernel's launches over each model's bf16 prefills."""
+    from repro_torch.models import frontends, moe
+    phase("11. the rest of the zoo at full width")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    b, s = ZOO_PREFILL
+    launches = {}
+
+    print("a. qwen3-moe-235b-a22b:", flush=True)
+    cfg, model = zoo_model(ZOO_MOE, gen)
+    zoo_moe_checks(cfg, model, gen)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    g = 256
+    cap = moe.expert_capacity(g, cfg.num_experts, cfg.experts_per_token,
+                              cfg.capacity_factor)
+    slots = b * s // g * cfg.num_experts * cap
+    print(f"  expert products: {slots} capacity slots against "
+          f"{b * s * cfg.experts_per_token} routed (token, expert) pairs, "
+          f"{6.0 * slots * cfg.d_model * cfg.d_ff / 1e12:.2f} TFLOP a layer",
+          flush=True)
+    launches[ZOO_MOE] = zoo_prefill(cfg, model, toks, ZOO_MOE,
+                                    moe_op_groups(cfg))
+    del toks
+    zoo_serve(cfg, model, gen)
+    del model
+    torch.cuda.empty_cache()
+
+    print("b. hubert-xlarge:", flush=True)
+    cfg, model = zoo_model(ZOO_ENCODER, gen)
+    frames = frontends.synthetic_frame_embeddings(cfg, gen, b, s)
+    launches[ZOO_ENCODER] = zoo_prefill(cfg, model, frames, ZOO_ENCODER)
+    del model, frames
+    torch.cuda.empty_cache()
+    zoo_host_check(gen)
+    torch.cuda.empty_cache()
+
+    print("c. dbrx-132b:", flush=True)
+    cfg, model = zoo_model(ZOO_DBRX, gen)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    launches[ZOO_DBRX] = zoo_prefill(cfg, model, toks, ZOO_DBRX,
+                                     moe_op_groups(cfg))
+    del model, toks
+    torch.cuda.empty_cache()
+    print(f"  phase 11 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2371,8 +2806,9 @@ def main() -> None:
     control_phase(args.seed)
     train_flash = training_phase(args.seed)
     ssm_rows = ssm_phase(args.seed)
+    zoo_launches = zoo_phase(args.seed)
 
-    phase("11. kernels")
+    phase("12. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]
@@ -2390,6 +2826,8 @@ def main() -> None:
     sources = {"flash_attention": (FLASH_SOURCE, FLASH_REPLACES),
                "ssd_scan": (SSD_SOURCE, SSD_REPLACES)}
     for name, row in model_rows.items():
+        if not isinstance(name, str):
+            continue
         kernels.append({
             "name": f"{name}[{shapes[name]}]", "route": "cuda",
             "source": sources[name][0], "replaces": sources[name][1],
@@ -2407,6 +2845,19 @@ def main() -> None:
         "bound_ms": train_flash["bound_ms"],
         "bound_by": train_flash["bound_by"],
         "library_ms": train_flash["library_ms"]})
+    zoo_shapes = {ZOO_ENCODER: ("B=2,S=4096,H=16,KV=16,D=80,bf16,"
+                                "bidirectional", FLASH_D80_SOURCE),
+                  ZOO_MOE: ("B=2,S=4096,H=64,KV=4,D=128,bf16,causal",
+                            FLASH_SOURCE)}
+    for arch, (shape, source) in zoo_shapes.items():
+        row = model_rows[("flash_attention", arch)]
+        kernels.append({
+            "name": f"flash_attention[{arch} prefill {shape}]",
+            "route": "cuda", "source": source,
+            "replaces": FLASH_REPLACES, "launches": zoo_launches[arch],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     for (name, shape), row in ssm_rows.items():
         kernels.append({
             "name": f"{name}[{shape}]", "route": "cuda",

@@ -1,10 +1,10 @@
 """Architecture config schema and registry (a copy of the JAX package's
 ``configs/base.py``; the fields and their defaults are the same).
 
-Only the architectures whose serving and training paths are ported have a
-config module here: ``qwen3-0.6b`` (dense), ``mamba2-1.3b`` (pure SSM) and
-``zamba2-1.2b`` (SSM + shared attention).  The MoE and embedding-input
-families are ROADMAP Queue 1 items.
+Every architecture of the JAX package has a config module here with the
+same values: the dense, MoE, SSM, hybrid and embedding-input (vlm, audio)
+families, and the paper's coded mat-vec job with its LM-shaped
+placeholder.
 """
 from __future__ import annotations
 
@@ -14,8 +14,19 @@ from typing import Optional, Tuple
 
 _REGISTRY: dict = {}
 
-#: the architectures this package has a config module for
-ARCH_IDS = ["qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"]
+ARCH_IDS = [
+    "zamba2-1.2b",
+    "deepseek-7b",
+    "llama3-405b",
+    "qwen3-0.6b",
+    "yi-9b",
+    "dbrx-132b",
+    "qwen3-moe-235b-a22b",
+    "mamba2-1.3b",
+    "hubert-xlarge",
+    "internvl2-76b",
+    "paper-matvec",  # the paper's own coded mat-vec job (Fig. 2 exemplar)
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,10 +121,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     """Look up an architecture config by id, importing its module on demand."""
     if name not in _REGISTRY:
-        if name not in ARCH_IDS:
-            raise KeyError(f"no config {name!r} in this package; ported: "
-                           f"{ARCH_IDS} (MoE, the frontends and the other "
-                           f"configs are ROADMAP Queue 1 items)")
         mod = name.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[name]

@@ -1,0 +1,14 @@
+"""deepseek-7b [dense]: llama-arch.  30L d_model=4096 32H (kv=32)
+d_ff=11008 vocab=102400  [arXiv:2401.02954; hf]."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102400,
+))

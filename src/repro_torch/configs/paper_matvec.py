@@ -1,9 +1,13 @@
 """paper-matvec: the paper's own exemplar job (Fig. 2) -- coded A @ X.
 
 An (M x D) matrix splits into k row-blocks, MDS-encodes into n coded
-tasks, and the job completes when any k workers finish.
+tasks, and the job completes when any k workers finish.  A tiny
+LM-shaped placeholder is registered under the same name, as the JAX
+package registers it, so that ``--arch paper-matvec`` resolves.
 """
 import dataclasses
+
+from .base import ModelConfig, register
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,3 +20,15 @@ class MatVecConfig:
 
 
 CONFIG = MatVecConfig()
+
+# the LM-shaped placeholder of the same name
+register(ModelConfig(
+    name="paper-matvec",
+    family="dense",
+    num_layers=2,
+    d_model=256,
+    num_heads=4,
+    num_kv_heads=4,
+    d_ff=1024,
+    vocab_size=1024,
+))

@@ -46,6 +46,21 @@
 // window 4096) a head keeps W(W+1)/2 + (S - W)W = 25.17 M (q, k) pairs:
 // 4*D*(B*H)*25.17e6 = 4*64*64*25.17e6 = 412 GFLOP, 0.417 ms at 989 TFLOP/s,
 // against 268 MB of q, k, v and o (0.080 ms): bound by operations as well.
+// At hubert-xlarge's (B 2, S 4096, H = KV = 16, D 80, bf16, bidirectional)
+// 4*B*H*D*S^2 = 171.8 GFLOP, 0.174 ms, against 84 MB (0.025 ms); at
+// qwen3-moe-235b-a22b's (B 2, S 4096, H 64, KV 4, D 128, causal: GQA 16)
+// 550 GFLOP, 0.556 ms.
+//
+// Head dims 16, 32, 64, 80 and 128 (HEAD_DIMS in ops.py).  Both schedules
+// need only D % 16 == 0: the SIMT one gives each thread D / 16 columns, and
+// the wgmma one runs D / 16 k-steps of m64n64k16 for Q K^T and one
+// m64nDk16 (n a multiple of 8) per 16 keys for P V, its tiles D / 8 core
+// matrices wide.  D = 80 is hubert-xlarge's (d 1280 / 16 heads); its
+// instantiations live in a translation unit of their own
+// (flash_attention_d80.cu): in this one, they moved the compiler's code for
+// the bf16 D = 128 kernel (one more 64-bit register hoisted; its SASS no
+// longer the parent's).  The schedules' templates are in flash_simt.cuh and
+// flash_fwd_wgmma.cuh, on flash_wgmma.cuh's building blocks.
 //
 // bf16: the wgmma schedule (flash_fwd_wgmma).  One block of two warpgroups
 // per (128-row q tile, q head, batch); each warpgroup owns 64 q rows.  Under
@@ -109,392 +124,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
-
-// ---------------------------------------------------------------------------
-// fp32: the SIMT schedule
-// ---------------------------------------------------------------------------
-namespace simt {
-
-constexpr int kThreads = 256;
-constexpr int BQ = 64;   // q rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <typename T, int D, bool kWindow>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-          int causal, int window, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 1;       // padded row of the q and k tiles
-  constexpr int LP = BK + 1;      // padded row of the probability tile
-  constexpr int NJ = D / 16;      // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;               // BQ x LD, pre-scaled fp32 q
-  float* Ks = Qs + BQ * LD;       // BK x LD
-  float* Vs = Ks + BK * LD;       // BK x D
-  float* Ps = Vs + BK * D;        // BQ x LP
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int offset = Sk - Sq;     // key position of q row 0
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int qi = q0 + r;
-    float val = 0.f;
-    if (qi < Sq) val = to_f(q[(((size_t)b * Sq + qi) * H + h) * D + d]) * scale;
-    Qs[r * LD + d] = val;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  int kv_end = Sk;
-  int kv_begin = 0;
-  const int win = kWindow && causal ? window : 0;
-  if (causal) {
-    const int last_q = min(q0 + BQ, Sq) - 1;
-    kv_end = min(Sk, offset + last_q + 1);
-    if (win > 0) kv_begin = max(0, offset + q0 - win + 1) / BK * BK;
-  }
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const int kj = k0 + r;
-      float kval = 0.f, vval = 0.f;
-      if (kj < Sk) {
-        const size_t g = (((size_t)b * Sk + kj) * KV + kvh) * D + d;
-        kval = to_f(k[g]);
-        vval = to_f(v[g]);
-      }
-      Ks[r * LD + d] = kval;
-      Vs[r * D + d] = vval;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = offset + q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        if (kj >= Sk || (causal && qpos < kj) || (win > 0 && qpos - kj >= win))
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      // a row that has seen no key yet: its masked scores weigh 0
-      const float m_sub = (win > 0 && m_new == kNegInf) ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_sub);
-        sum += p;
-        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncwarp();  // a thread's rows are written by the 16 lanes of its warp
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(denom);
-    T* row = o + (((size_t)b * Sq + qi) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j] / denom);
-  }
-}
-
-template <int D, bool kWindow>
-int launch_w(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
-             int Sk, int H, int KV, int B, int causal, int window, float scale,
-             cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<float, D, kWindow>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<float, D, kWindow><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, lse, Sq, Sk, H, KV, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_d(const float* q, const float* k, const float* v, float* o, float* lse, int Sq,
-             int Sk, int H, int KV, int B, int causal, int window, float scale,
-             cudaStream_t stream) {
-  if (causal && window > 0)
-    return launch_w<D, true>(q, k, v, o, lse, Sq, Sk, H, KV, B, causal, window, scale, stream);
-  return launch_w<D, false>(q, k, v, o, lse, Sq, Sk, H, KV, B, causal, 0, scale, stream);
-}
-
-}  // namespace simt
-
-}  // namespace
-
+#include "flash_simt.cuh"
 #include "flash_wgmma.cuh"
-
-namespace {
-namespace wg {
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: 128 registers
-flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                int B, int Sq, int Sk, int H, int KV, int causal, float scale_log2) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, at most 128");
-  constexpr uint32_t kTileKV = BKV * D * sizeof(bf16);
-  constexpr uint32_t kRowGroup = 16 * D;  // bytes between 8-row groups of a tile
-  extern __shared__ __align__(128) uint8_t tiles[];
-  const uint32_t sQ = smem_addr(tiles);
-  const uint32_t sK = sQ + BQ * D * sizeof(bf16);
-  const uint32_t sV = sK + kStages * kTileKV;
-
-  const int ntiles = (Sq + BQ - 1) / BQ;
-  int tile = blockIdx.x / (H * B);
-  if (causal) tile = ntiles - 1 - tile;
-  const int h = blockIdx.x % H;
-  const int b = (blockIdx.x / H) % B;
-  const int q0 = tile * BQ;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int wgi = tid / 128;            // warpgroup
-  const int warp = (tid % 128) / 32;    // warp within it
-  const int lane = tid % 32;
-  const int quad = lane % 4;
-  const int offset = Sk - Sq;           // key position of q row 0
-
-  const long long q_ld = (long long)H * D, kv_ld = (long long)KV * D;
-  const bf16* qb = q + ((long long)b * Sq + q0) * q_ld + (long long)h * D;
-  const bf16* kb = k + (long long)b * Sk * kv_ld + (long long)kvh * D;
-  const bf16* vb = v + (long long)b * Sk * kv_ld + (long long)kvh * D;
-
-  const int kv_end = causal ? min(Sk, offset + min(q0 + BQ, Sq)) : Sk;
-  const int n_kv = (kv_end + BKV - 1) / BKV;
-
-  load_tile<BQ, D>(sQ, qb, Sq - q0, q_ld, tid);
-  load_tile<BKV, D>(sK, kb, Sk, kv_ld, tid);
-  load_tile<BKV, D>(sV, vb, Sk, kv_ld, tid);
-  cp_async_commit();
-
-  // this warpgroup's rows, and the two rows of this thread's fragment
-  const int wq0 = q0 + 64 * wgi;
-  const int wg_rows = min(64, Sq - wq0);            // <= 0: a ragged block's idle half
-  const int wg_last = offset + wq0 + wg_rows - 1;   // key position of its last row
-  const int row0 = wq0 + 16 * warp + lane / 4;      // and row0 + 8
-  const int pos0 = offset + row0;
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const uint32_t qa = sQ + 8 * kRowGroup * wgi;     // this warpgroup's 64 q rows
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int stage = j % kStages;
-    if (j + 1 < n_kv) {
-      const int k1 = (j + 1) * BKV;
-      const uint32_t next = ((j + 1) % kStages) * kTileKV;
-      load_tile<BKV, D>(sK + next, kb + k1 * kv_ld, Sk - k1, kv_ld, tid);
-      load_tile<BKV, D>(sV + next, vb + k1 * kv_ld, Sk - k1, kv_ld, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the copies just issued has landed
-    fence_proxy_async();
-    __syncthreads();
-
-    const int k0 = j * BKV;
-    if (wg_rows > 0 && (!causal || k0 <= wg_last)) {
-      // S = Q K^T: 64 x 64 fp32 per warpgroup
-      float s[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(s, make_desc(qa + 256 * kk, 128, kRowGroup),
-                     make_desc(sK + stage * kTileKV + 256 * kk, 128, kRowGroup), kk > 0);
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(s);
-
-      // s[8n + e] is (row0, key k0 + 8n + 2 quad + e), s[8n + 2 + e] (row0 + 8, same key)
-      if (k0 + BKV > Sk || (causal && k0 + BKV - 1 > offset + wq0)) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kj = k0 + 8 * n + 2 * quad + e;
-            if (kj >= Sk || (causal && kj > pos0)) s[4 * n + e] = kNegInf;
-            if (kj >= Sk || (causal && kj > pos0 + 8)) s[4 * n + 2 + e] = kNegInf;
-          }
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
-      }
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        corr[r] = exp2f((m[r] - mx[r]) * scale_log2);
-        m[r] = mx[r];
-        mx[r] *= scale_log2;
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(fmaf(s[4 * n + e], scale_log2, -mx[e / 2]));
-          s[4 * n + e] = p;
-          sum[e / 2] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];  // this lane's share
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[4 * n] *= corr[0];
-        acc[4 * n + 1] *= corr[0];
-        acc[4 * n + 2] *= corr[1];
-        acc[4 * n + 3] *= corr[1];
-      }
-
-      // O += P V, P = hi + lo as two bf16 A fragments (keys 16kk..16kk+15
-      // from s[8kk..8kk+7]): hi alone would carry 2^-9 of each weight into o
-      uint32_t ph[BKV / 16][4], pl[BKV / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-          const float2 back = __bfloat1622float2(hi);
-          ph[kk][r] = bits(hi);
-          pl[kk][r] = bits(__floats2bfloat162_rn(p0 - back.x, p1 - back.y));
-        }
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        const uint32_t keys = sV + stage * kTileKV + 2 * kRowGroup * kk;  // 16kk..
-        const uint64_t vt = make_desc(keys, kRowGroup, 128);
-        WgmmaRS<D>::run(acc, ph[kk], vt);
-        WgmmaRS<D>::run(acc, pl[kk], vt);
-      }
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(acc);
-    }
-    __syncthreads();  // this stage is read; the next round refills it
-  }
-
-  if (wg_rows <= 0) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int qi = row0 + 8 * r;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    if (lse != nullptr && quad == 0)
-      lse[((long long)b * H + h) * Sq + qi] = (m[r] * scale_log2 + log2f(denom)) * kLn2;
-    bf16* row = o + (((long long)b * Sq + qi) * H + h) * D + 2 * quad;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
-          acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
-  }
-}
-
-template <int D>
-int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int Sq,
-             int Sk, int H, int KV, int B, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((Sq + BQ - 1) / BQ) * H * B;
-  flash_fwd_wgmma<D><<<blocks, kThreads, bytes, stream>>>(q, k, v, o, lse, B, Sq, Sk, H,
-                                                          KV, causal, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace wg
-
-}  // namespace
+#include "flash_fwd_wgmma.cuh"
 
 extern "C" {
 
@@ -513,6 +145,9 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, vo
       return simt::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
     case 64:
       return simt::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
+    case 80:
+      return flash_attention_d80_f32(qq, kk, vv, oo, ll, B, Sq, Sk, H, KV, causal, window,
+                                     scale, s);
     case 128:
       return simt::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
@@ -535,6 +170,8 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, v
     case 16: return wg::launch_d<16>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
     case 32: return wg::launch_d<32>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
     case 64: return wg::launch_d<64>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
+    case 80:
+      return flash_attention_d80_bf16(qq, kk, vv, oo, ll, B, Sq, Sk, H, KV, causal, scale, s);
     case 128: return wg::launch_d<128>(qq, kk, vv, oo, ll, Sq, Sk, H, KV, B, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,11 @@
 // The bf16 schedule's building blocks (wgmma, cp.async, core-matrix tiles),
-// shared by the flash attention kernels of flash_attention.cu (no window)
-// and flash_attention_window.cu (a causal sliding window).  Each file is
-// its own translation unit: in one unit, the windowed kernel moved the
+// shared by the flash attention kernels of flash_attention.cu (no window),
+// flash_attention_d80.cu (no window, head dim 80) and
+// flash_attention_window.cu (a causal sliding window).  Each file is its
+// own translation unit: in one unit, the windowed kernel moved the
 // compiler's code for the unwindowed D = 128 instantiation (8 bytes
-// spilled, 8 % slower at the qwen3-0.6b prefill shape).
+// spilled, 8 % slower at the qwen3-0.6b prefill shape), and so did the
+// D = 80 instantiations (one more 64-bit register hoisted).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -150,6 +152,26 @@ template <> struct WgmmaRS<64> {
   }
 };
 
+template <> struct WgmmaRS<80> {
+  __device__ __forceinline__ static void run(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
 template <> struct WgmmaRS<128> {
   __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -205,3 +227,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int val
 int flash_attention_window_bf16(const void* q, const void* k, const void* v, void* o,
                                 void* lse, int B, int Sq, int Sk, int H, int KV, int D,
                                 int window, float scale, void* stream);
+
+// The head-dim-80 launches (flash_attention_d80.cu); the arguments are the C
+// entry points' on typed pointers, the stream a cudaStream_t.
+int flash_attention_d80_f32(const float* q, const float* k, const float* v, float* o,
+                            float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                            int window, float scale, cudaStream_t stream);
+int flash_attention_d80_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B,
+                             int Sq, int Sk, int H, int KV, int causal, float scale,
+                             cudaStream_t stream);

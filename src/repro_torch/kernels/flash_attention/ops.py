@@ -15,7 +15,10 @@ import torch
 from . import kernel
 from .ref import attention_lse_ref, attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+#: head dims of the bf16 kernel under a causal sliding window (no config
+#: runs a window at another)
+WINDOW_HEAD_DIMS = (16, 32, 64, 128)
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -45,6 +48,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and causal and window > 0 and \
+            d not in WINDOW_HEAD_DIMS:
+        raise ValueError(f"bf16 head dim {d} under a sliding window: not "
+                         f"in {WINDOW_HEAD_DIMS}")
     if q.dtype == torch.bfloat16 and \
             any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("bf16 q, k and v must start on 16-byte boundaries "

@@ -12,10 +12,12 @@ are simulated with the paper's models.
 
     python -m repro_torch.launch.serve [--arch qwen3-0.6b] [--device cuda]
 
-``--arch`` takes qwen3-0.6b, mamba2-1.3b or zamba2-1.2b at the reference's
-TINY scale, whose ``attn_every=0`` makes zamba2 a pure SSM here exactly as
-in the reference; ``serve`` itself serves any ported config, the hybrid's
-ring-buffer window cache included.
+``--arch`` takes any architecture id at the reference's TINY scale, whose
+``num_experts=0``, ``embedding_inputs=False`` and ``attn_every=0`` make
+every model a dense, token-input transformer or a pure SSM here exactly as
+in the reference.  ``serve`` itself serves any config with token inputs
+and a decode step at any width: the dense, MoE, SSM and hybrid families
+(the hybrid's ring-buffer window cache included).
 """
 from __future__ import annotations
 

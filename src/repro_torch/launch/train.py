@@ -12,10 +12,11 @@ straggling:
      latest complete checkpoint (``checkpoint``, the reference's layout).
 
 The dense (``--arch qwen3-0.6b``), pure-SSM (``mamba2-1.3b``) and hybrid
-(``zamba2-1.2b``) families train; MoE and the embedding-input families
-are ROADMAP Queue 1 items and raise.  ``--scale tiny`` sets
-``attn_every=0``, as the reference's does, so a tiny zamba2 is a pure
-SSM.
+(``zamba2-1.2b``) families train; the MoE, encoder and embedding-input
+families raise here (their model code computes the loss and its
+gradient; training them here is a ROADMAP Queue 1 item).  ``--scale
+tiny`` sets ``attn_every=0``, as the reference's does, so a tiny zamba2
+is a pure SSM.
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --scale tiny \\
         --steps 50 --n-workers 8 --straggle bimodal:10:0.3 \\
@@ -112,8 +113,8 @@ def main(argv=None) -> TrainRun:
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (ROADMAP Queue 1: MoE, frontends); --arch takes the "
-            f"families {TRAINED_FAMILIES}")
+            f"yet (ROADMAP Queue 1: the new families' training); --arch "
+            f"takes the families {TRAINED_FAMILIES}")
     if args.scale == "tiny":
         cfg = cfg.scaled(**{k: v for k, v in TINY.items()
                             if hasattr(cfg, k)})

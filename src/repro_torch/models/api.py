@@ -4,10 +4,13 @@ the JAX package's ``models/api.py``).
     init_params / param_shapes / forward / train_forward / loss_fn
     init_cache / decode_step / padded_vocab
 
-``transformer`` serves and trains the dense family, ``ssm_lm`` the
-pure-SSM family (mamba2) and the SSM + shared-attention hybrid (zamba2).
-The other families (MoE, encoder, vlm, audio) are ROADMAP Queue 1 items
-(MoE, frontends) and raise here.  ``forward`` is the body of the
+``transformer`` serves the dense, MoE, encoder-only and embedding-input
+(vlm, audio) families, ``ssm_lm`` the pure-SSM family (mamba2) and the
+SSM + shared-attention hybrid (zamba2); ``launch.train`` trains the dense,
+SSM and hybrid families.  An embedding-input family takes (B, S, d)
+embeddings (``models.frontends``) where the others take token ids, and an
+encoder (``encoder``, ``audio``) has no decode step.  A family the JAX
+package does not have raises.  ``forward`` is the body of the
 reference's prefill cell (``launch/steps.py::build_prefill_cell``) and
 takes no gradient; ``train_forward`` and ``loss_fn`` are the reference's
 differentiable ``forward`` and ``loss_fn``; ``decode_step`` is the body of
@@ -19,15 +22,15 @@ from .._device import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
 from . import ssm_lm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm_lm, "hybrid": ssm_lm}
+_FAMILIES = {"dense": transformer, "moe": transformer,
+             "encoder": transformer, "vlm": transformer,
+             "audio": transformer, "ssm": ssm_lm, "hybrid": ssm_lm}
 
 
 def model_module(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1: MoE, frontends); ported: "
-            f"{sorted(_FAMILIES)}")
+        raise ValueError(f"{cfg.name}: no model family {cfg.family!r}; "
+                         f"families: {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -58,7 +61,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None):
-    """Logits (B, S, V_pad) of tokens (B, S): the prefill path."""
+    """Logits (B, S, V_pad) of tokens (B, S) (embeddings (B, S, d) for an
+    embedding-input family): the prefill path."""
     return model_module(cfg).forward(cfg, params, tokens, positions)
 
 
@@ -78,8 +82,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
-    """(logits (B, 1, V_pad), cache) for tokens (B, 1) at ``pos``; the
-    cache is updated in place."""
+    """(logits (B, 1, V_pad), cache) for tokens (B, 1) (embeddings
+    (B, 1, d)) at ``pos``; the cache is updated in place."""
     return model_module(cfg).decode_step(cfg, params, cache, tokens, pos)
 
 

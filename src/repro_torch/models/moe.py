@@ -1,0 +1,95 @@
+"""Capacity-based top-k Mixture-of-Experts FFN (a port of the JAX
+package's ``models/moe.py``).
+
+Dense dispatch: tokens are grouped, routed top-k, and placed into per-expert
+capacity slots via one-hot dispatch/combine products (no ragged ops).
+
+Capacity per expert per group:  C = ceil(g * top_k / E * capacity_factor),
+rounded up to a multiple of 4.  Overflow tokens are dropped (standard
+capacity-based behaviour); the router uses softmax-then-top-k with
+probabilities renormalised over the selected experts (DBRX/Qwen3
+convention).
+
+The reference's ``constrain`` calls and its ``moe_a2a`` switch only say
+how GSPMD shards the expert and group axes over a mesh; on one device they
+are the identity, so the port has neither.  The router, dispatch, expert
+and combine products are plain matrix products outside any kernel, as the
+reference leaves them to XLA (``torch.einsum``, in ``x.dtype``).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def expert_capacity(group_size: int, num_experts: int, top_k: int,
+                    capacity_factor: float) -> int:
+    c = int(group_size * top_k / num_experts * capacity_factor + 0.999)
+    return max(4, (c + 3) // 4 * 4)
+
+
+def route(xg: torch.Tensor, router: torch.Tensor, top_k: int,
+          cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dispatch, combine), each (ng, g, E, C) in ``xg.dtype``, for the
+    grouped tokens ``xg`` (ng, g, d): token t of a group sits in slot c of
+    expert e with weight combine[., t, e, c]; a (token, expert) pair past
+    the expert's capacity ``cap`` has no slot (it is dropped)."""
+    e = router.shape[1]
+    logits = torch.einsum("ngd,de->nge", xg, router.to(xg.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    # jax.lax.top_k: descending, the lower expert first among equal
+    # probabilities; a stable descending sort picks the same experts
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True),
+                                        min=1e-9)
+
+    ng, g = xg.shape[:2]
+    # one-hot expert assignment per top-k slot: (ng, g, k, E)
+    assign = F.one_hot(gate_idx, e).float()
+    # position of each (token, slot) within its expert queue, priority by
+    # (slot, token) order: cumsum over the flattened (k, g) axis
+    assign_kg = assign.transpose(1, 2).reshape(ng, top_k * g, e)
+    pos_kg = torch.cumsum(assign_kg, dim=1) - assign_kg      # 0-based
+    pos = pos_kg.reshape(ng, top_k, g, e).transpose(1, 2)    # (ng, g, k, E)
+    keep = (pos < cap).float() * assign                      # drop overflow
+    gate = gate_vals[..., None] * keep                       # (ng, g, k, E)
+
+    # an expert is picked at most once per token, so the top-k axis is
+    # reduced before the capacity one-hot: no (ng, g, k, E, C) tensor
+    pos_r = (pos * keep).sum(dim=2)                          # (ng, g, E)
+    keep_r = keep.sum(dim=2)                                 # 0/1
+    gate_r = gate.sum(dim=2)
+    oh = (F.one_hot(pos_r.long(), cap).to(xg.dtype)
+          * keep_r[..., None].to(xg.dtype))                  # (ng, g, E, C)
+    return oh, oh * gate_r[..., None].to(xg.dtype)
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
+            capacity_factor: float = 1.25,
+            group_size: int = 256) -> torch.Tensor:
+    """Top-k capacity-dispatch MoE with SwiGLU experts: x (B, S, d),
+    router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d) -> (B, S, d)
+    in ``x.dtype``."""
+    b, s, d = x.shape
+    e = router.shape[1]
+    tokens = b * s
+    g = min(group_size, tokens)
+    if tokens % g:
+        raise ValueError(f"tokens={tokens} not divisible by group={g}")
+    ng = tokens // g
+    cap = expert_capacity(g, e, top_k, capacity_factor)
+
+    xg = x.reshape(ng, g, d)
+    dispatch, combine = route(xg, router, top_k, cap)
+    xin = torch.einsum("ngec,ngd->necd", dispatch, xg)
+    h_g = torch.einsum("necd,edf->necf", xin, w_gate.to(x.dtype))
+    h_u = torch.einsum("necd,edf->necf", xin, w_up.to(x.dtype))
+    h = F.silu(h_g) * h_u
+    xout = torch.einsum("necf,efd->necd", h, w_down.to(x.dtype))
+    y = torch.einsum("ngec,necd->ngd", combine, xout)
+    return y.reshape(b, s, d)

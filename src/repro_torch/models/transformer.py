@@ -1,14 +1,22 @@
-"""Decoder transformer LM, dense family (a port of the JAX package's
-``models/transformer.py``).
+"""Decoder/encoder transformer LM family, dense and MoE (a port of the JAX
+package's ``models/transformer.py``).
+
+Covers deepseek-7b, llama3-405b, qwen3-0.6b (qk_norm), yi-9b, dbrx-132b
+and qwen3-moe-235b-a22b (MoE), hubert-xlarge (encoder-only, embedding
+inputs) and internvl2-76b (embedding inputs).
 
 ``TransformerLM`` holds the parameters under the reference's pytree names
 and shapes: ``layers.<name>`` stacked along a leading ``num_layers`` axis
-(``layers.wq`` (L, d, H, hd), ...), ``embed``, ``final_norm`` and
+(``layers.wq`` (L, d, H, hd), ...; a MoE layer's ``router`` (L, d, E) and
+experts ``w_gate`` / ``w_up`` (L, E, d, f), ``w_down`` (L, E, f, d)),
+``embed`` (absent when the inputs are embeddings), ``final_norm`` and
 ``lm_head``.  The forward pass is a loop over layers.  ``forward`` (the
 prefill path) takes no gradient; ``train_forward`` is the same loop with
 gradients and the config's activation rematerialisation, and ``loss_fn``
-its token cross-entropy.  MoE (``num_experts > 0``) and embedding inputs
-are ROADMAP Queue 1 items (MoE, frontends).
+its token cross-entropy.  With ``embedding_inputs`` the model takes
+(B, S, d) embeddings where the others take (B, S) token ids, and
+``causal=False`` (the encoder) makes the full-sequence attention
+bidirectional.
 """
 from __future__ import annotations
 
@@ -18,8 +26,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, applicable_shapes
 from . import layers as L
+from .moe import moe_ffn
 from .params import StackedParams, dtype_of, parameter
 
 
@@ -42,36 +51,31 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     if cfg.qk_norm:
         shapes["q_norm"] = (nl, hd)
         shapes["k_norm"] = (nl, hd)
-    shapes.update(w_gate=(nl, d, f), w_up=(nl, d, f), w_down=(nl, f, d))
+    if cfg.num_experts:
+        e = cfg.num_experts
+        shapes.update(router=(nl, d, e), w_gate=(nl, e, d, f),
+                      w_up=(nl, e, d, f), w_down=(nl, e, f, d))
+    else:
+        shapes.update(w_gate=(nl, d, f), w_up=(nl, d, f), w_down=(nl, f, d))
     return shapes
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1, "
-            f"MoE)")
-    if cfg.embedding_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding-input families are not ported yet "
-            f"(ROADMAP Queue 1, frontends)")
-
-
 class TransformerLM(torch.nn.Module):
-    """Dense decoder LM; parameters uninitialised until ``init_params`` or
-    ``convert.params_to_port`` fills them.  ``trainable``: every parameter
-    requires a gradient (the training path); else none does (serving)."""
+    """Decoder (or encoder) LM; parameters uninitialised until
+    ``init_params`` or ``convert.params_to_port`` fills them.  No ``embed``
+    when ``cfg.embedding_inputs``.  ``trainable``: every parameter requires
+    a gradient (the training path); else none does (serving)."""
 
     def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE,
                  trainable: bool = False):
         super().__init__()
-        _check_supported(cfg)
         device = resolve(device)
         self.cfg = cfg
         dt = dtype_of(cfg.param_dtype)
         v = padded_vocab(cfg)
         self.layers = StackedParams(_layer_shapes(cfg), dt, device, trainable)
-        self.embed = parameter((v, cfg.d_model), dt, device, trainable)
+        if not cfg.embedding_inputs:
+            self.embed = parameter((v, cfg.d_model), dt, device, trainable)
         self.final_norm = parameter((cfg.d_model,), dt, device, trainable)
         self.lm_head = parameter((cfg.d_model, v), dt, device, trainable)
 
@@ -84,8 +88,8 @@ class TransformerLM(torch.nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 trainable: bool = False) -> TransformerLM:
     """Parameters with the reference's laws (norms 1, truncated-normal
-    fan-in weights, 0.02 embedding), drawn from ``generator`` on its
-    device."""
+    fan-in weights, the router and experts by their input axis, 0.02
+    embedding), drawn from ``generator`` on its device."""
     model = TransformerLM(cfg, generator.device, trainable)
     for name, p in sorted(model.layers.named_parameters()):
         shape = p.shape
@@ -98,8 +102,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if name in ("wq", "wk", "wv"):
             fan_in = shape[1]
         p.copy_(L.dense_init(generator, shape, fan_in, p.dtype))
-    model.embed.copy_(L.embed_init(generator, model.embed.shape,
-                                   model.embed.dtype))
+    if not cfg.embedding_inputs:
+        model.embed.copy_(L.embed_init(generator, model.embed.shape,
+                                       model.embed.dtype))
     model.final_norm.fill_(1.0)
     model.lm_head.copy_(L.dense_init(generator, model.lm_head.shape,
                                      cfg.d_model, model.lm_head.dtype))
@@ -150,11 +155,18 @@ def _attn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
 def _ffn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                x: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.num_experts:
+        return moe_ffn(h, lp["router"], lp["w_gate"], lp["w_up"],
+                       lp["w_down"], top_k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor)
     return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
 def _embed(cfg: ModelConfig, params: TransformerLM,
            tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.embedding_inputs:
+        # already (B, S, d) embeddings
+        return tokens.to(dtype_of(cfg.compute_dtype))
     # gather, then cast: bit for bit the reference's cast-then-gather,
     # without casting the whole table on every call
     return params.embed[tokens].to(dtype_of(cfg.compute_dtype))
@@ -190,8 +202,9 @@ def _forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V_pad).  Prefill path: one
-    flash-attention launch per layer on the card, no gradient."""
+    """Full-sequence forward of tokens (B, S) (or embeddings (B, S, d))
+    -> logits (B, S, V_pad).  Prefill path: one flash-attention launch per
+    layer on the card, causal or not as ``cfg.causal``, no gradient."""
     return _forward(cfg, params, tokens, positions, remat="none")
 
 
@@ -243,8 +256,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: TransformerLM, cache,
                 tokens: torch.Tensor, pos: int):
-    """One autoregressive step: tokens (B, 1) at position ``pos``.  Returns
-    (logits (B, 1, V), cache), the cache updated in place."""
+    """One autoregressive step: tokens (B, 1) (or embeddings (B, 1, d)) at
+    position ``pos``.  Returns (logits (B, 1, V), cache), the cache updated
+    in place.  The encoder families (``applicable_shapes`` lists no decode
+    cell for them: their attention is bidirectional) raise."""
+    if "decode_32k" not in applicable_shapes(cfg):
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is an "
+                         f"encoder and has no decode step")
     pos = int(pos)
     x = _embed(cfg, params, tokens)
     b = x.shape[0]

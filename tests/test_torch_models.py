@@ -302,17 +302,28 @@ def test_decode_matches_forward(arch):
 
 
 def test_unported_families_raise():
-    qwen = get_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        api.init_params(qwen.scaled(num_experts=4, experts_per_token=2),
-                        generator(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="frontends"):
-        api.init_params(qwen.scaled(embedding_inputs=True),
-                        generator(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="family 'moe'"):
-        api.forward(qwen.scaled(family="moe"), None, None)
-    with pytest.raises(KeyError, match="dbrx-132b"):
-        get_config("dbrx-132b")
+    """Every family of the JAX package is served now (MoE and embedding
+    inputs since the zoo slice, tests/test_torch_zoo.py): a family the JAX
+    package does not have raises, an unknown architecture does, and so does
+    an encoder's decode step (it has no decode cell)."""
+    qwen = reduced("qwen3-0.6b")
+    moe = api.init_params(qwen.scaled(num_experts=4, experts_per_token=2),
+                          generator(0, "cpu"))
+    assert moe.layers.router.shape == (2, 64, 4)
+    emb = api.init_params(qwen.scaled(embedding_inputs=True),
+                          generator(0, "cpu"))
+    assert not hasattr(emb, "embed")
+    with pytest.raises(ValueError, match="no model family 'mlp'"):
+        api.forward(qwen.scaled(family="mlp"), None, None)
+    with pytest.raises(ModuleNotFoundError):
+        get_config("no-such-arch")
+    assert get_config("dbrx-132b").num_experts == 16
+    hubert = reduced("hubert-xlarge")
+    model = api.init_params(hubert, generator(0, "cpu"))
+    cache = api.init_cache(hubert, 1, 4, dtype="float32", device="cpu")
+    with pytest.raises(ValueError, match="encoder"):
+        api.decode_step(hubert, model, cache,
+                        torch.zeros((1, 1, hubert.d_model)), 0)
 
 
 # --------------------------------------------------------------------------
