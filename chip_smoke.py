@@ -184,7 +184,28 @@ Phases, none of whose failures is caught (any fault exits non-zero):
    c. dbrx-132b, 2 of its 40 layers (16 experts, top-4, d 6144, 48 heads
       over 8, d_ff 10752): the bf16 prefill at B 2 x S 4096 (2 launches
       each, profiled).
-12. One JSON line listing every kernel with its launches and times; the
+12. Training the MoE and embedding-input families at full width (the
+    lse-writing flash forward and the plain backward at four new training
+    routes), each model freeing the card before the next:
+   a. at each route (B 16 x S 256, bf16: qwen3-moe-235b-a22b's H 64 over
+      KV 4, dbrx-132b's H 48 over 8, hubert-xlarge's D 80 bidirectional,
+      internvl2-76b's H 64 over 8) the forward with lse against its plain
+      version, its times beside SDPA's, the lse fault planted at the first
+      and the scale of D 128 at D 80; ``FlashTrain``'s gradients in fp32
+      (B 2) against autograd; the plain backward's time a layer;
+   b. each family's coded gradient against the plain unique-batch one, in
+      fp32 at a narrow cut (capacity factor E / k for the MoE: no drops);
+   c. hubert-xlarge's decode step (causal over the cache) card = host;
+   d. qwen3-moe-235b-a22b (1 of 94 layers) and dbrx-132b (1 of 40)
+      through ``CodedTrainer`` with bf16 AdamW moments, hubert-xlarge (all
+      48) and internvl2-76b (2 of 80) through
+      ``launch.steps.build_train_cell``'s step, on frontend embeddings: 6
+      steps of phase 9's coded batch (16 rows x 256, repeated), each
+      step's loss and ms, the median warm step, tokens/s, 2 flash launches
+      a layer a step (asserted), a falling finite loss, the forward /
+      backward / AdamW split, one profiled step with its device time by
+      group, peak memory under 76 GB.
+13. One JSON line listing every kernel with its launches and times; the
     last line is the device record.
 """
 from __future__ import annotations
@@ -433,6 +454,35 @@ ZOO_DECODE_TOKENS = 64
 # a 2-layer cut, 64 frames; cuBLAS and the flash kernel's fp32 schedule
 # against MKL and the plain version, 1e-4 of max|logits|
 ZOO_HOST_LAYERS, ZOO_HOST_FRAMES, ZOO_HOST_TOL = 2, 64, 1e-4
+# phase 12: training the MoE and embedding-input families at full width,
+# depth cut: qwen3-moe-235b-a22b 1 of 94 layers (3.73 B parameters),
+# dbrx-132b 1 of 40 (4.49 B), hubert-xlarge whole (48 layers, 1.26 B),
+# internvl2-76b 2 of 80 (2.76 B, its bf16 parameters).  Phase 9's batch:
+# unique 8, n 8, c 2 planned from bimodal:10:0.2, so 16 coded rows x 256,
+# one coded batch repeated every step (a falling loss then shows the step
+# learns).  AdamW is the reference's train-cell default
+# (launch.steps.default_opt_cfg: lr 3e-4 after 100 warmup steps; at
+# launch.train's tiny-model lr 1e-3 with 10 warmup steps these widths
+# overshoot and the loss of the repeated batch jumps about).  The MoE
+# configs keep bf16 AdamW moments: with fp32 ones dbrx's 16 bytes a
+# parameter (72 GB) leave no room for the step
+NEW_TRAIN = {"qwen3-moe-235b-a22b": dict(layers=1, moments="bfloat16"),
+             "dbrx-132b": dict(layers=1, moments="bfloat16"),
+             "hubert-xlarge": dict(layers=48, moments="float32"),
+             "internvl2-76b": dict(layers=2, moments="float32")}
+NEW_TRAIN_STEPS, NEW_TRAIN_MEM_GB = 6, 76.0
+NEW_TRAIN_SEQ, NEW_TRAIN_UNIQUE, NEW_TRAIN_WORKERS = 256, 8, 8
+# the coded-gradient check of each family on the card, in fp32 at a cut of
+# the shapes of tests/test_models_smoke.py (d 64, 4 heads, 4 experts,
+# top 2) with the capacity factor at E / k, so that no group of the coded
+# or the unique batch drops a token (they group other rows)
+NEW_CODED_CUT = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128,
+                     vocab_size=257, head_dim=None, flash_block_kv=16,
+                     remat="none", compute_dtype="float32",
+                     param_dtype="float32")
+# hubert's decode step (causal over the cache, as the reference's): card
+# against host in fp32, a 2-layer cut, 16 positions, 1e-4 of max|logits|
+NEW_DECODE_LAYERS, NEW_DECODE_POSITIONS = 2, 16
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -738,6 +788,24 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
     return row
 
 
+def plant_d128_scale(q, k, v, ref, causal: bool, atol: float,
+                     rtol: float) -> None:
+    """At head dim 80: an output made with the plain version and the
+    softmax scale of D 128 (1/sqrt(128) where 1/sqrt(80) is right), over
+    the first FLASH_ZOO_HEADS heads, must fail the tolerance."""
+    hs = slice(0, FLASH_ZOO_HEADS)
+    rep = q.shape[2] // k.shape[2]
+    kv = slice(0, FLASH_ZOO_HEADS // rep)
+    faulted = sliced_plain(q[:, :, hs].float() * math.sqrt(80 / 128),
+                           k[:, :, kv].float(), v[:, :, kv].float(), causal,
+                           0, False, heads=FLASH_ZOO_HEADS)
+    e = excess(faulted, ref[:, :, hs], atol, rtol)
+    print(f"    planted fault, the scale of D 128 at D 80: max |out-ref| "
+          f"/ limit = {e:.3g}  {'caught' if e > 1 else 'MISSED'}",
+          flush=True)
+    assert e > 1, "the tolerance misses a planted fault: the D 128 scale"
+
+
 def zoo_flash_compare(arch: str, gen, reps: int) -> dict:
     """Phase 3, the rest of the zoo: the flash kernel at ``arch``'s
     prefill shape (FLASH_ZOO), without and with lse, against its plain
@@ -768,17 +836,7 @@ def zoo_flash_compare(arch: str, gen, reps: int) -> dict:
     same = torch.equal(out, out_l)
     ok = ratio <= 1 and lse_err <= LSE_TOL[dtype] and same
     if D == 80:
-        hs = slice(0, FLASH_ZOO_HEADS)
-        # scores scaled by 1/sqrt(128) where 1/sqrt(80) is right
-        faulted = plain(q[:, :, hs].float() * math.sqrt(80 / 128),
-                        k[:, :, hs].float(), v[:, :, hs].float(), causal, 0,
-                        False)
-        e = excess(faulted, ref[:, :, hs], atol, rtol)
-        print(f"    planted fault, the scale of D 128 at D 80: max |out-ref| "
-              f"/ limit = {e:.3g}  {'caught' if e > 1 else 'MISSED'}",
-              flush=True)
-        assert e > 1, "the tolerance misses a planted fault: the D 128 scale"
-        del faulted
+        plant_d128_scale(q, k, v, ref, causal, atol, rtol)
     del out, out_l, lse, ref, ref_lse
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fns = {"plain": lambda: plain(q, k, v, causal, 0, False),
@@ -1045,20 +1103,23 @@ def main_path_phase(cfg, seed: int) -> dict:
     return launches
 
 
-def profile_call(label: str, fn, op_groups=None):
+def profile_call(label: str, fn, op_groups=None, split=None):
     """One more call of ``fn`` under ``torch.profiler``: the device
     operations it launched, device time by kernel group and the device's
     idle share of the call's span.  ``op_groups``: a function of a PyTorch
     operation's name and input shapes giving a group name or None; the
     device time of the operations in each group is printed as well (the
-    shapes are recorded for it).  Returns (device operations, busy ms, span
-    ms), or None when the profiler saw no device time."""
+    shapes are recorded for it).  ``split``: a function of the profile and
+    the busy ms that prints its own breakdown (shapes recorded too).
+    Returns (device operations, busy ms, span ms), or None when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=op_groups is not None) as prof:
+                 record_shapes=op_groups is not None or split is not None
+                 ) as prof:
         start.record()
         fn()
         end.record()
@@ -1107,6 +1168,8 @@ def profile_call(label: str, fn, op_groups=None):
         if not any(by_op.values()):
             print("    the profiler linked no device time to the operations: "
                   "split not measured")
+    if split is not None:
+        split(prof, busy_ms)
     return sum(e.count for e in kernels), busy_ms, span_ms
 
 
@@ -1874,7 +1937,8 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
     3's tolerance, lse within LSE_TOL; then the times of the forward
     with lse, without it, of the plain version and of SDPA in turns.
     ``plant``: a planted lse fault (base-2 units, the wgmma schedule's
-    own, without the ln 2) must fail the check."""
+    own, without the ln 2) must fail the check, and at head dim 80 the
+    scale of D 128 too."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_lse_ref,
                                                      flash_attention,
@@ -1900,6 +1964,8 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
               f"{'caught' if fault > LSE_TOL[dtype] else 'MISSED'}",
               flush=True)
         assert fault > LSE_TOL[dtype], "the lse tolerance misses a fault"
+        if D == 80:
+            plant_d128_scale(q, k, v, ref, causal, atol, rtol)
     del out, lse, ref, ref_lse
     fns = {"plain": lambda: attention_lse_ref(q, k, v, causal),
            "kernel": lambda: flash_attention_lse(q, k, v, causal),
@@ -1959,14 +2025,34 @@ def restore_check(run, ckpt_dir: Path, steps: int) -> None:
     shutil.rmtree(ckpt_dir)
 
 
-def step_split(run, step: int) -> list:
-    """One warm step of ``run``'s trainer split by CUDA events: forward and
+def part_times(cfg, params, opt_cfg, opt_state, x, labels, w) -> list:
+    """One warm step on (x, labels, w) split by CUDA events: forward and
     loss, backward (the layers' recompute and the plain backwards in it),
-    AdamW; then one more under the profiler.  Returns the three ms."""
-    import numpy as np
-    from repro_torch.data import coded_batch, decode_example_weights
+    AdamW.  Prints and returns the three ms."""
     from repro_torch.optim import adamw
     from repro_torch.runtime import weighted_loss_fn
+    leaves = dict(params.named_parameters())
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    loss = weighted_loss_fn(cfg)(params, x, labels, w)
+    events[1].record()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    events[2].record()
+    adamw.apply_updates(opt_cfg, params, dict(zip(leaves, grads)), opt_state)
+    events[3].record()
+    torch.cuda.synchronize()
+    split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    print(f"  one warm step by part (CUDA events): forward + loss "
+          f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW "
+          f"{split[2]:.2f} ms", flush=True)
+    return split
+
+
+def step_split(run, step: int) -> list:
+    """One warm step of ``run``'s trainer split by part (``part_times``);
+    then one more under the profiler.  Returns the three ms."""
+    import numpy as np
+    from repro_torch.data import coded_batch, decode_example_weights
     cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
     tr = run.trainer
     toks, labs = coded_batch(tr.data_cfg, step, tr.step_cfg.code)
@@ -1974,43 +2060,130 @@ def step_split(run, step: int) -> list:
     w = torch.from_numpy(decode_example_weights(
         tr.step_cfg.code, coef, tr.step_cfg.per_worker_rows,
         tr.step_cfg.unique_batch)).cuda()
-    leaves = dict(run.params.named_parameters())
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    events[0].record()
-    loss = weighted_loss_fn(run.cfg)(run.params, cuda(toks), cuda(labs), w)
-    events[1].record()
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    events[2].record()
-    adamw.apply_updates(tr.opt_cfg, run.params, dict(zip(leaves, grads)),
-                        run.opt_state)
-    events[3].record()
-    torch.cuda.synchronize()
-    split = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    print(f"  one warm step by part (CUDA events): forward + loss "
-          f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, AdamW "
-          f"{split[2]:.2f} ms", flush=True)
-    del loss, grads, leaves
+    split = part_times(run.cfg, run.params, tr.opt_cfg, run.opt_state,
+                       cuda(toks), cuda(labs), w)
     profile_call("training step", lambda: run.trainer.run_step(
         run.params, run.opt_state, step + 1))
     return split
+
+
+def flash_train_grads(shape, causal: bool, gen, block_kv: int = 128) -> None:
+    """``FlashTrain``'s gradients in fp32 (the kernel's forward with lse,
+    the plain recompute backward) against autograd through the plain
+    version, at (B, S, H, KV, D) = ``shape``: each of dq, dk, dv within
+    TRAIN_BWD_TOL of its max, or the phase fails."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.layers import FlashTrain
+    B, S, H, KV, D = shape
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
+               for h in (H, KV, KV))
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda a, b, c: FlashTrain.apply(a, b, c, causal,
+                                                block_kv)[0],
+               lambda a, b, c: attention_ref(a, b, c, causal)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+    worst = 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), *grads):
+        err = float((g - r).abs().max()) / float(r.abs().max())
+        worst = max(worst, err)
+        print(f"  FlashTrain {name} (B {B}, S {S}, H {H}, KV {KV}, D {D}, "
+              f"fp32, {'causal' if causal else 'bidirectional'}, block_kv "
+              f"{block_kv}) against autograd through the plain version: "
+              f"max|diff| / max|grad| {err:.3e} (limit {TRAIN_BWD_TOL:g})",
+              flush=True)
+    assert worst <= TRAIN_BWD_TOL, worst
+
+
+def train_bwd_ms(shape, causal: bool, gen, row: dict) -> float:
+    """The plain backward's time a layer at the bf16 training shape
+    (B, Sq, Sk, H, KV, D), beside ``row``'s forward with lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    from repro_torch.models.layers import _flash_train_bwd
+    B, S, _, H, KV, D = shape
+    qb, kb, vb = (torch.randn((B, S, h, D), generator=gen,
+                              device="cuda").bfloat16() for h in (H, KV, KV))
+    ob, lseb = flash_attention_lse(qb, kb, vb, causal)
+    bwd_ms = time_ms(lambda: _flash_train_bwd(qb, kb, vb, ob, lseb,
+                                              torch.ones_like(ob), causal,
+                                              1024), reps=5)
+    print(f"  plain-PyTorch backward at the training shape (bf16 in, fp32 "
+          f"math): {bwd_ms:.4f} ms a layer (CUDA events); the forward with "
+          f"lse {row['ms']:.4f} ms", flush=True)
+    return bwd_ms
+
+
+def coded_rows(code, rows_per_part: int):
+    """The unique rows each coded row copies, in ``coded_batch``'s layout:
+    worker i's rows are the part of its group (rows_per_part rows)."""
+    import numpy as np
+    return np.concatenate([np.arange(code.group_of(i) * rows_per_part,
+                                     (code.group_of(i) + 1) * rows_per_part)
+                           for i in range(code.n)])
+
+
+def coded_gradient_check(cfg, gen, label: str) -> None:
+    """The coded gradient on the card (n 8, c 2, one worker of a group
+    straggled: CODED_CASE) against the plain gradient over the unique rows,
+    in fp32 with ``cfg``'s parameters drawn from ``gen``:
+    tests/test_runtime.py:38-62's tolerances.  An embedding-input ``cfg``
+    takes frontend embeddings of the unique rows, copied to the coded rows
+    as ``coded_batch`` copies token rows."""
+    import numpy as np
+    from repro_torch.core.coding import gc_decode_weights
+    from repro_torch.data import (DataConfig, coded_batch,
+                                  decode_example_weights, synthetic_batch)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api, frontends
+    from repro_torch.runtime import CodedStepConfig, weighted_loss_fn
+    n, c, alive = CODED_CASE
+    step_cfg = CodedStepConfig(n_workers=n, c=c,
+                               unique_batch=2 * (n // c))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                          global_batch=step_cfg.unique_batch)
+    code = step_cfg.code
+    toks_c, labs_c = coded_batch(data_cfg, 0, code)
+    a = gc_decode_weights(code, np.asarray(alive, bool))
+    w = decode_example_weights(code, a, step_cfg.per_worker_rows,
+                               step_cfg.unique_batch)
+    parts = [synthetic_batch(data_cfg, 0, part=j, num_parts=code.num_groups)
+             for j in range(code.num_groups)]
+    toks_u = np.concatenate([p[0] for p in parts])
+    labs_u = np.concatenate([p[1] for p in parts])
+    model = api.init_params(cfg, gen, trainable=True)
+    cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+    x_c, x_u = cuda(toks_c), cuda(toks_u)
+    if cfg.embedding_inputs:
+        x_u = frontends.synthetic_embeddings(
+            cfg, gen, len(toks_u), data_cfg.seq_len, cfg.compute_dtype)
+        x_c = x_u[cuda(coded_rows(code, step_cfg.per_worker_rows))]
+    lf = weighted_loss_fn(cfg)
+    flash_attention.launches = 0
+    g_coded = torch.autograd.grad(
+        lf(model, x_c, cuda(labs_c), cuda(w)), model.parameters())
+    g_plain = torch.autograd.grad(
+        lf(model, x_u, cuda(labs_u), torch.ones(len(toks_u), device="cuda")),
+        model.parameters())
+    assert flash_attention.launches == 2 * cfg.num_layers
+    close = all(torch.allclose(x, y, rtol=CODED_RTOL, atol=CODED_ATOL)
+                for x, y in zip(g_coded, g_plain))
+    diff = max(float((x - y).abs().max()) for x, y in zip(g_coded, g_plain))
+    print(f"  coded gradient (n {n}, c {c}, alive {alive}, {label} fp32, "
+          f"the flash kernel {flash_attention.launches} launches) against "
+          f"the plain gradient over the unique rows: max|diff| {diff:.3e} "
+          f"(rtol {CODED_RTOL:g}, atol {CODED_ATOL:g})  "
+          f"{'ok' if close else 'MISMATCH'}", flush=True)
+    assert close
 
 
 def training_phase(seed: int) -> dict:
     """Phase 9: the coded training slice on the card.  Returns the row of
     the training route of flash_attention (its time at the training shape
     and its launches in the full-width run)."""
-    import numpy as np
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.core.coding import gc_decode_weights
-    from repro_torch.data import (DataConfig, coded_batch,
-                                  decode_example_weights, synthetic_batch)
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention,
-                                                     flash_attention_lse)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import train
-    from repro_torch.models import api
-    from repro_torch.models.layers import FlashTrain, _flash_train_bwd
-    from repro_torch.runtime import CodedStepConfig, weighted_loss_fn
     phase("9. coded training at full width")
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -2028,76 +2201,16 @@ def training_phase(seed: int) -> dict:
 
     # FlashTrain's backward against autograd through the plain version
     B, S, _, H, KV, D = TRAIN_BWD_SHAPE
-    q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
-               for h in (H, KV, KV))
-    dout = torch.randn((B, S, H, D), generator=gen, device="cuda")
-    grads = []
-    for fn in (lambda a, b, c: FlashTrain.apply(a, b, c, True, 128)[0],
-               lambda a, b, c: attention_ref(a, b, c, True)):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
-    worst = 0.0
-    for name, g, r in zip(("dq", "dk", "dv"), *grads):
-        err = float((g - r).abs().max()) / float(r.abs().max())
-        worst = max(worst, err)
-        print(f"  FlashTrain {name} (B {B}, S {S}, H {H}, KV {KV}, D {D}, "
-              f"fp32, causal, block_kv 128) against autograd through the "
-              f"plain version: max|diff| / max|grad| {err:.3e} (limit "
-              f"{TRAIN_BWD_TOL:g})", flush=True)
-    assert worst <= TRAIN_BWD_TOL, worst
-    shape = TRAIN_FLASH_SHAPES[1][0]
-    qb, kb, vb = (torch.randn((shape[0], shape[1], h, shape[5]),
-                              generator=gen, device="cuda").bfloat16()
-                  for h in (shape[3], shape[4], shape[4]))
-    ob, lseb = flash_attention_lse(qb, kb, vb, True)
-    bwd_ms = time_ms(lambda: _flash_train_bwd(qb, kb, vb, ob, lseb,
-                                              torch.ones_like(ob), True,
-                                              1024), reps=5)
-    print(f"  plain-PyTorch backward at the training shape (bf16 in, fp32 "
-          f"math): {bwd_ms:.4f} ms a layer (CUDA events); the forward with "
-          f"lse {train_row['ms']:.4f} ms", flush=True)
-    del q, k, v, dout, grads, qb, kb, vb, ob, lseb
+    flash_train_grads((B, S, H, KV, D), True, gen)
+    train_bwd_ms(TRAIN_FLASH_SHAPES[1][0], True, gen, train_row)
 
     # the coded gradient on the card at TINY, fp32
-    n, c, alive = CODED_CASE
     cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=257,
                       flash_block_kv=16, remat="none",
                       compute_dtype="float32", param_dtype="float32")
-    step_cfg = CodedStepConfig(n_workers=n, c=c,
-                               unique_batch=2 * (n // c))
-    data_cfg = DataConfig(vocab_size=257, seq_len=16,
-                          global_batch=step_cfg.unique_batch)
-    code = step_cfg.code
-    toks_c, labs_c = coded_batch(data_cfg, 0, code)
-    a = gc_decode_weights(code, np.asarray(alive, bool))
-    w = decode_example_weights(code, a, step_cfg.per_worker_rows,
-                               step_cfg.unique_batch)
-    parts = [synthetic_batch(data_cfg, 0, part=j, num_parts=code.num_groups)
-             for j in range(code.num_groups)]
-    toks_u = np.concatenate([p[0] for p in parts])
-    labs_u = np.concatenate([p[1] for p in parts])
-    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        seed), trainable=True)
-    lf = weighted_loss_fn(cfg)
-    cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
-    flash_attention.launches = 0
-    g_coded = torch.autograd.grad(
-        lf(model, cuda(toks_c), cuda(labs_c), cuda(w)), model.parameters())
-    g_plain = torch.autograd.grad(
-        lf(model, cuda(toks_u), cuda(labs_u),
-           torch.ones(len(toks_u), device="cuda")), model.parameters())
-    assert flash_attention.launches == 2 * cfg.num_layers
-    close = all(torch.allclose(x, y, rtol=CODED_RTOL, atol=CODED_ATOL)
-                for x, y in zip(g_coded, g_plain))
-    diff = max(float((x - y).abs().max()) for x, y in zip(g_coded, g_plain))
-    print(f"  coded gradient (n {n}, c {c}, alive {alive}, TINY fp32, the "
-          f"flash kernel {flash_attention.launches} launches) against the "
-          f"plain gradient over the unique rows: max|diff| {diff:.3e} "
-          f"(rtol {CODED_RTOL:g}, atol {CODED_ATOL:g})  "
-          f"{'ok' if close else 'MISMATCH'}", flush=True)
-    assert close
-    del model, g_coded, g_plain
+    coded_gradient_check(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "TINY")
 
     # the slice at full width, through its entry point
     ckpt_dir = ROOT / "build" / "train_ckpt"
@@ -2789,13 +2902,284 @@ def zoo_phase(seed: int) -> dict:
     return launches
 
 
+def train_groups(cfg):
+    """``profile_call``'s ``split`` for a training step: the device time of
+    every kernel by what launched it.  The flash kernel's forward (by its
+    name), every kernel under ``FlashTrain``'s backward node (the plain
+    recompute backward), then by the launching operation: for a MoE the
+    expert products (batched over the experts, with both d and d_ff among
+    their axes), the router's products (an axis of E) and the other
+    batched products (dispatch and combine); every other matrix product;
+    the copies of ``.to`` casts to bf16 (mostly the fp32 weights' casts)
+    and to fp32; the rest.  Device time the profiler linked to no
+    operation is printed apart; a sum above the busy time is flagged."""
+    from torch.autograd import DeviceType
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    bf16_code = 15                  # c10::ScalarType::BFloat16
+
+    def gemm_group(name: str, shapes) -> str:
+        ops = [tuple(x) for x in shapes if x and len(x) >= 2][:2]
+        dims = {n for x in ops for n in x[-2:]}
+        if e and name == "aten::bmm" and len(ops) == 2 and \
+                ops[0][0] == ops[1][0] == e and {d, f} <= dims:
+            return "expert products"
+        if e and e in dims and d in dims:
+            return "router"
+        if e and name == "aten::bmm":
+            return "dispatch / combine"
+        return "other GEMMs"
+
+    def group_of(ev, kernel: str) -> str:
+        if "flash_fwd" in kernel:
+            return "flash forward (kernel)"
+        parent = ev.cpu_parent
+        while parent is not None:
+            if "FlashTrainBackward" in parent.name:
+                return "flash plain backward"
+            parent = parent.cpu_parent
+        if ev.name in ("aten::mm", "aten::bmm", "aten::addmm",
+                       "aten::baddbmm"):
+            return gemm_group(ev.name, ev.input_shapes or [])
+        if ev.name == "aten::copy_" and ev.cpu_parent is not None and \
+                ev.cpu_parent.name == "aten::_to_copy":
+            args = ev.cpu_parent.concrete_inputs or []
+            return ("casts to bf16" if len(args) > 1 and args[1] == bf16_code
+                    else "casts to fp32")
+        return "other"
+
+    def split(prof, busy_ms: float) -> None:
+        groups = {}
+        for ev in prof.events():
+            # a launch that waited on a full queue ("Command Buffer Full")
+            # is linked to the kernels of the operation that launched them
+            if ev.device_type != DeviceType.CPU or \
+                    ev.name == "Command Buffer Full":
+                continue
+            for k in ev.kernels:
+                if k.name == ev.name:   # a range's own CUDA time, no kernel
+                    continue
+                g = group_of(ev, k.name)
+                groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+        linked = sum(groups.values())
+        groups["linked to no operation"] = busy_ms - linked
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"    by group: {g:26s} {ms:9.3f} ms  {ms / busy_ms:6.1%} "
+                  f"of busy", flush=True)
+        if linked > busy_ms * 1.001:
+            print(f"  WARNING: the groups sum to {linked:.3f} ms, more than "
+                  f"the busy {busy_ms:.3f} ms: a kernel is counted twice; "
+                  f"split not measured", flush=True)
+    return split
+
+
+def new_flash_routes(gen) -> dict:
+    """Phase 12 a: the lse-writing flash forward at each new training
+    route (16 coded rows x 256, bf16) against its plain version, its times
+    beside SDPA's; ``FlashTrain``'s gradients at the route's heads, head
+    dim and causality in fp32 (B 2); the plain backward's time a layer.
+    Planted: the lse fault at the first route, the D 128 scale at D 80.
+    Returns {arch: kernels-line row}."""
+    from repro_torch.configs import get_config
+    rows = {}
+    for i, arch in enumerate(NEW_TRAIN):
+        cfg = get_config(arch)
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        S = NEW_TRAIN_SEQ
+        shape = (2 * NEW_TRAIN_UNIQUE, S, S, H, KV, D)
+        print(f"  {arch}: H {H}, KV {KV}, D {D}, "
+              f"{'causal' if cfg.causal else 'bidirectional'}", flush=True)
+        row = flash_lse_compare(shape, torch.bfloat16, cfg.causal, gen,
+                                reps=10, plant=i == 0 or D == 80)
+        assert row["ok"], (arch, row)
+        flash_train_grads((2, S, H, KV, D), cfg.causal, gen)
+        row["bwd_ms"] = train_bwd_ms(shape, cfg.causal, gen, row)
+        rows[arch] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def new_decode_check(gen) -> None:
+    """Phase 12 c: hubert-xlarge's decode step (causal over the cache, the
+    reference's) on the card against the same module on the host, fp32, a
+    2-layer cut over 16 positions of frames: ZOO_HOST_TOL of max."""
+    from repro_torch.models import api, frontends
+    cfg, model = zoo_model(ZOO_ENCODER, gen, compute_dtype="float32",
+                           num_layers=NEW_DECODE_LAYERS)
+    host = api.model_class(cfg)(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    x = frontends.synthetic_frame_embeddings(cfg, gen, 2,
+                                             NEW_DECODE_POSITIONS, "float32")
+    out = []
+    for m, dev in ((model, "cuda"), (host, "cpu")):
+        cache = api.init_cache(cfg, 2, NEW_DECODE_POSITIONS, "float32", dev)
+        steps = [api.decode_step(cfg, m, cache, x[:, t:t + 1].to(dev),
+                                 t)[0][:, 0]
+                 for t in range(NEW_DECODE_POSITIONS)]
+        out.append(torch.stack(steps, dim=1).cpu())
+    scale = float(out[1].abs().max())
+    err = float((out[0] - out[1]).abs().max())
+    ok = err <= ZOO_HOST_TOL * scale and bool(torch.isfinite(out[0]).all())
+    print(f"  decode step, fp32, {NEW_DECODE_LAYERS}-layer cut, B 2 x "
+          f"{NEW_DECODE_POSITIONS} positions (causal over the cache): card "
+          f"against host max|diff| {err:.3e}, max|logits| {scale:.3f} (tol "
+          f"{ZOO_HOST_TOL:g} of max)  {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    assert ok, (err, scale)
+    del model, host
+
+
+def new_train_run(arch: str, gen) -> int:
+    """Phase 12 d: ``arch`` at full width with its depth cut (NEW_TRAIN),
+    NEW_TRAIN_STEPS steps on one repeated coded batch: through
+    ``CodedTrainer`` for a token-input config, through
+    ``launch.steps.build_train_cell``'s step for an embedding-input one
+    (frontend embeddings of the unique rows copied to the coded rows,
+    token labels, the trainer's decode coefficients expanded to the
+    rows).  Each step's loss and ms, the median warm step, tokens/s, the
+    flash launches (2 a layer a step under remat full, asserted), peak
+    memory (under NEW_TRAIN_MEM_GB), a falling finite loss, the split and
+    one profiled step.  Returns the flash launches of the steps."""
+    import numpy as np
+    from repro_torch.api import Scenario
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.distributions import Scaling
+    from repro_torch.data import DataConfig, coded_batch, expand_worker_weights
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import api, frontends
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (CodedStepConfig, CodedTrainer,
+                                     StragglerSim, best_fr_policy)
+    plan = NEW_TRAIN[arch]
+    cfg = get_config(arch).scaled(num_layers=plan["layers"])
+    dist = serve.parse_dist(TRAIN_ARGV[TRAIN_ARGV.index("--straggle") + 1])
+    scaling = Scaling.DATA_DEPENDENT
+    policy, _ = best_fr_policy(Scenario(dist, scaling, NEW_TRAIN_WORKERS,
+                                        delta=1.0), "cuda")
+    c = policy.c
+    step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, c, NEW_TRAIN_UNIQUE)
+    data_cfg = DataConfig(cfg.vocab_size, NEW_TRAIN_SEQ, NEW_TRAIN_UNIQUE)
+    opt_cfg = dataclasses.replace(steps.default_opt_cfg(),
+                                  moment_dtype=plan["moments"])
+    sim = StragglerSim(dist, scaling, n=NEW_TRAIN_WORKERS, s=c, delta=1.0,
+                       seed=7, device="cuda")
+    trainer = CodedTrainer(cfg, data_cfg, step_cfg, opt_cfg,
+                           alive_fn=sim.alive_fn(5.0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, trainable=True)
+    opt = adamw.init(opt_cfg, params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+          f"layers, {n_params / 1e9:.3f} B {cfg.param_dtype} parameters, "
+          f"{plan['moments']} AdamW moments, made on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock); c {c} from "
+          f"{dist}: {step_cfg.coded_batch_rows} coded rows x "
+          f"{NEW_TRAIN_SEQ}", flush=True)
+    cuda = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+    toks, labs = coded_batch(data_cfg, 0, step_cfg.code)
+    coef = trainer.decode_coefficients(trainer.gather_alive(0))
+    w = expand_worker_weights(cuda(coef), step_cfg.per_worker_rows,
+                              step_cfg.coded_batch_rows / NEW_TRAIN_UNIQUE)
+    if cfg.embedding_inputs:
+        unique = frontends.synthetic_embeddings(
+            cfg, gen, NEW_TRAIN_UNIQUE, NEW_TRAIN_SEQ, cfg.compute_dtype)
+        x = unique[cuda(coded_rows(step_cfg.code, step_cfg.per_worker_rows))]
+        cell = steps.build_train_cell(
+            cfg, ShapeConfig("coded", "train", NEW_TRAIN_SEQ,
+                             step_cfg.coded_batch_rows), opt_cfg, "cuda")
+        assert x.shape == cell.args[2].shape and x.dtype == cell.args[2].dtype
+        step = lambda p, o: cell.fn(p, o, x, cuda(labs), w)  # noqa: E731
+        route = "launch.steps.build_train_cell"
+    else:
+        x = cuda(toks)
+        step = lambda p, o: trainer.run_step(p, o, 0)  # noqa: E731
+        route = "CodedTrainer.run_step"
+    hist = []
+    flash_attention.launches = 0
+    for _ in range(NEW_TRAIN_STEPS):
+        began = torch.cuda.Event(enable_timing=True)
+        ended = torch.cuda.Event(enable_timing=True)
+        began.record()
+        params, opt, metrics = step(params, opt)
+        ended.record()
+        hist.append((began, ended, metrics))
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    losses = [float(m["loss"]) for *_, m in hist]
+    ms = [a.elapsed_time(b) for a, b, _ in hist]
+    for i, (loss, t, (*_, m)) in enumerate(zip(losses, ms, hist)):
+        print(f"  step {i + 1} ({route}, coded batch of step 0): loss "
+              f"{loss:.4f} grad_norm {float(m['grad_norm']):.4f} lr "
+              f"{m['lr']:.3e} {t:.2f} ms (CUDA events)", flush=True)
+    warm = sorted(ms[1:])
+    step_ms = warm[len(warm) // 2]
+    tokens = step_cfg.coded_batch_rows * NEW_TRAIN_SEQ
+    print(f"  median warm step {step_ms:.2f} ms = "
+          f"{tokens / step_ms * 1e3:.0f} coded tokens/s "
+          f"({NEW_TRAIN_UNIQUE * NEW_TRAIN_SEQ / step_ms * 1e3:.0f} unique); "
+          f"flash_attention launches {launches} ({launches / NEW_TRAIN_STEPS:g}"
+          f" a step: {cfg.num_layers} layers x forward + recompute)",
+          flush=True)
+    assert launches == 2 * cfg.num_layers * NEW_TRAIN_STEPS, launches
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    part_times(cfg, params, opt_cfg, opt, x, cuda(labs), w)
+    prof = profile_call("training step", lambda: step(params, opt),
+                        split=train_groups(cfg))
+    if prof is not None:
+        print(f"  busy {prof[1]:.3f} ms of the median warm step's "
+              f"{step_ms:.2f} ms without the profiler: device idle "
+              f"{1 - prof[1] / step_ms:.1%}", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  peak device memory {peak_gb:.2f} GB (limit "
+          f"{NEW_TRAIN_MEM_GB:g} GB)", flush=True)
+    assert peak_gb < NEW_TRAIN_MEM_GB, peak_gb
+    del params, opt, hist, metrics, x, w, trainer, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def new_family_phase(seed: int) -> dict:
+    """Phase 12: training the MoE and embedding-input families at full
+    width.  Returns {arch: kernels-line row} for their flash training
+    routes, with the launches of the full-width steps."""
+    from repro_torch.configs import get_config
+    phase("12. training the MoE and embedding-input families at full width")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    print("a. the flash training routes:", flush=True)
+    rows = new_flash_routes(gen)
+    print("b. the coded gradient of each family:", flush=True)
+    for arch in NEW_TRAIN:
+        ref = get_config(arch)
+        cfg = ref.scaled(**NEW_CODED_CUT,
+                         num_kv_heads=max(1, min(ref.num_kv_heads, 2)))
+        if cfg.num_experts:
+            cfg = cfg.scaled(num_experts=4, experts_per_token=2,
+                             capacity_factor=2.0)
+        coded_gradient_check(cfg, gen, f"{arch} cut")
+    print("c. hubert-xlarge's decode step:", flush=True)
+    new_decode_check(gen)
+    torch.cuda.empty_cache()
+    print("d. full-width training:", flush=True)
+    for arch in NEW_TRAIN:
+        rows[arch]["launches"] = new_train_run(arch, gen)
+    print(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     smi = device_phase()
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import CONFIG
+    from repro_torch.configs import CONFIG, get_config
     build_phase()
     timed = kernel_phase(CONFIG, args.seed)
     model_rows = model_kernel_phase(args.seed)
@@ -2807,8 +3191,9 @@ def main() -> None:
     train_flash = training_phase(args.seed)
     ssm_rows = ssm_phase(args.seed)
     zoo_launches = zoo_phase(args.seed)
+    new_rows = new_family_phase(args.seed)
 
-    phase("12. kernels")
+    phase("13. kernels")
     kernels = []
     for (k, N), count in sorted(launches.items()):
         row = timed[(k, N)]
@@ -2867,6 +3252,21 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    for arch, row in new_rows.items():
+        cfg = get_config(arch)
+        kernels.append({
+            "name": f"flash_attention[{arch} training forward with lse "
+                    f"B={2 * NEW_TRAIN_UNIQUE},S={NEW_TRAIN_SEQ},"
+                    f"H={cfg.num_heads},KV={cfg.num_kv_heads},"
+                    f"D={cfg.resolved_head_dim},bf16,"
+                    f"{'causal' if cfg.causal else 'bidirectional'}]",
+            "route": "cuda",
+            "source": FLASH_D80_SOURCE if cfg.resolved_head_dim == 80
+            else FLASH_SOURCE,
+            "replaces": FLASH_REPLACES, "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

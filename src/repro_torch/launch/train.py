@@ -11,12 +11,14 @@ straggling:
   4. async checkpoints every ``ckpt_every`` steps; restart resumes from the
      latest complete checkpoint (``checkpoint``, the reference's layout).
 
-The dense (``--arch qwen3-0.6b``), pure-SSM (``mamba2-1.3b``) and hybrid
-(``zamba2-1.2b``) families train; the MoE, encoder and embedding-input
-families raise here (their model code computes the loss and its
-gradient; training them here is a ROADMAP Queue 1 item).  ``--scale
-tiny`` sets ``attn_every=0``, as the reference's does, so a tiny zamba2
-is a pure SSM.
+Every architecture trains at ``--scale tiny`` and ``small``: as in the
+reference, those scales set ``num_experts=0`` and
+``embedding_inputs=False`` (every family is then a token-input model; an
+encoder stays bidirectional) and ``attn_every=0`` (a tiny zamba2 is a
+pure SSM).  At ``--scale full`` the dense, MoE, SSM and hybrid families
+train; an embedding-input config (hubert-xlarge, internvl2-76b) raises,
+since the coded batches are token ids: it trains through
+``launch.steps.build_train_cell``, as it does in the reference.
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --scale tiny \\
         --steps 50 --n-workers 8 --straggle bimodal:10:0.3 \\
@@ -42,8 +44,6 @@ from ..optim import adamw
 from ..runtime import (CodedStepConfig, CodedTrainer, StragglerSim,
                        Telemetry, best_fr_policy)
 from .serve import TINY, parse_dist
-
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 SMALL = dict(num_layers=4, d_model=256, num_heads=8, num_kv_heads=4,
              d_ff=1024, vocab_size=2048, flash_block_kv=128,
@@ -110,17 +110,17 @@ def main(argv=None) -> TrainRun:
     device = resolve(args.device)
 
     cfg = get_config(args.arch)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (ROADMAP Queue 1: the new families' training); --arch "
-            f"takes the families {TRAINED_FAMILIES}")
     if args.scale == "tiny":
         cfg = cfg.scaled(**{k: v for k, v in TINY.items()
                             if hasattr(cfg, k)})
     elif args.scale == "small":
         cfg = cfg.scaled(**{k: v for k, v in SMALL.items()
                             if hasattr(cfg, k)})
+    if cfg.embedding_inputs:
+        raise ValueError(
+            f"{cfg.name} takes (B, S, d) embeddings and the coded batches "
+            f"are token ids: train it through "
+            f"launch.steps.build_train_cell, or at --scale tiny or small")
 
     dist = parse_dist(args.straggle)
     scaling = Scaling.DATA_DEPENDENT

@@ -2,19 +2,20 @@
 the JAX package's ``models/api.py``).
 
     init_params / param_shapes / forward / train_forward / loss_fn
-    init_cache / decode_step / padded_vocab
+    init_cache / cache_shapes / decode_step / padded_vocab
 
-``transformer`` serves the dense, MoE, encoder-only and embedding-input
-(vlm, audio) families, ``ssm_lm`` the pure-SSM family (mamba2) and the
-SSM + shared-attention hybrid (zamba2); ``launch.train`` trains the dense,
-SSM and hybrid families.  An embedding-input family takes (B, S, d)
-embeddings (``models.frontends``) where the others take token ids, and an
-encoder (``encoder``, ``audio``) has no decode step.  A family the JAX
-package does not have raises.  ``forward`` is the body of the
-reference's prefill cell (``launch/steps.py::build_prefill_cell``) and
-takes no gradient; ``train_forward`` and ``loss_fn`` are the reference's
-differentiable ``forward`` and ``loss_fn``; ``decode_step`` is the body of
-its ``serve_step``.
+``ssm_lm`` serves the pure-SSM family (mamba2) and the SSM +
+shared-attention hybrid (zamba2); ``transformer`` serves every other
+family (dense, MoE, encoder-only, the embedding-input vlm and audio), as
+the reference's ``model_module`` sends them.  An embedding-input family
+takes (B, S, d) embeddings (``models.frontends``) where the others take
+token ids.  An encoder's decode step is the reference's: causal over the
+cache, although ``applicable_shapes`` lists no decode cell for it.
+``forward`` is the body of the reference's prefill cell
+(``launch/steps.py::build_prefill_cell``) and takes no gradient;
+``train_forward`` and ``loss_fn`` are the reference's differentiable
+``forward`` and ``loss_fn``; ``decode_step`` is the body of its
+``serve_step``.
 """
 from __future__ import annotations
 
@@ -22,16 +23,11 @@ from .._device import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
 from . import ssm_lm, transformer
 
-_FAMILIES = {"dense": transformer, "moe": transformer,
-             "encoder": transformer, "vlm": transformer,
-             "audio": transformer, "ssm": ssm_lm, "hybrid": ssm_lm}
+_SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def model_module(cfg: ModelConfig):
-    if cfg.family not in _FAMILIES:
-        raise ValueError(f"{cfg.name}: no model family {cfg.family!r}; "
-                         f"families: {sorted(_FAMILIES)}")
-    return _FAMILIES[cfg.family]
+    return ssm_lm if cfg.family in _SSM_FAMILIES else transformer
 
 
 def model_class(cfg: ModelConfig):
@@ -79,6 +75,13 @@ def loss_fn(cfg: ModelConfig, params, tokens, labels):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", device=DEFAULT_DEVICE):
     return model_module(cfg).init_cache(cfg, batch, max_len, dtype, device)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype: str = "bfloat16"):
+    """``init_cache``'s tree as ``meta`` tensors (shape and dtype, no
+    storage): the reference's ``cache_shapes``."""
+    return model_module(cfg).cache_shapes(cfg, batch, max_len, dtype)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):

@@ -44,3 +44,13 @@ def synthetic_patch_embeddings(cfg: ModelConfig, generator: torch.Generator,
     0.02 N(0, 1), (batch, seq, d_model) in ``dtype``."""
     x = _normal(cfg, generator, batch, seq, device)
     return (0.02 * x).to(dtype_of(dtype))
+
+
+def synthetic_embeddings(cfg: ModelConfig, generator: torch.Generator,
+                         batch: int, seq: int, dtype: str = "bfloat16",
+                         device=None) -> torch.Tensor:
+    """``cfg``'s stand-in inputs: frames for the audio family (hubert),
+    patches for the others (internvl2)."""
+    make = (synthetic_frame_embeddings if cfg.family == "audio"
+            else synthetic_patch_embeddings)
+    return make(cfg, generator, batch, seq, dtype, device)

@@ -238,6 +238,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return state
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype: str = "bfloat16") -> Dict[str, Any]:
+    """``init_cache``'s tree as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Mamba2LM, cache: Dict[str, Any],
                 tokens: torch.Tensor, pos: int):

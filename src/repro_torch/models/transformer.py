@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve
-from ..configs.base import ModelConfig, applicable_shapes
+from ..configs.base import ModelConfig
 from . import layers as L
 from .moe import moe_ffn
 from .params import StackedParams, dtype_of, parameter
@@ -253,16 +253,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=dt, device=device))
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype: str = "bfloat16"):
+    """``init_cache``'s pair as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: TransformerLM, cache,
                 tokens: torch.Tensor, pos: int):
     """One autoregressive step: tokens (B, 1) (or embeddings (B, 1, d)) at
     position ``pos``.  Returns (logits (B, 1, V), cache), the cache updated
-    in place.  The encoder families (``applicable_shapes`` lists no decode
-    cell for them: their attention is bidirectional) raise."""
-    if "decode_32k" not in applicable_shapes(cfg):
-        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is an "
-                         f"encoder and has no decode step")
+    in place.  Attention over the cache is causal for every family, the
+    encoders' too, as in the reference (``applicable_shapes`` lists no
+    decode cell for an encoder)."""
     pos = int(pos)
     x = _embed(cfg, params, tokens)
     b = x.shape[0]

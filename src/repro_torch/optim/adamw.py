@@ -11,10 +11,12 @@ float32 (numpy float32 scalars, as ``jnp`` computes them).  Not
 
 Where the reference returns new pytrees, ``apply_updates`` updates the
 parameters and the moments in place (one copy of each on the device) and
-returns them.  Each tensor is updated on its own, so the temporaries are
-the size of one parameter, not of the model.  ``state_shapes`` and
-``state_specs`` (dry-run tools) wait with ``launch/dryrun.py`` (ROADMAP
-Queue 1).
+returns them.  Each tensor is updated on its own, in slices of at most
+``UPDATE_SLICE`` elements, so the temporaries are the size of one slice,
+not of the model or of a stacked expert leaf; the arithmetic is
+elementwise, so the slices give the same values.  ``state_shapes`` is the
+state as ``meta`` tensors (``launch.steps``' train cell); ``state_specs``
+(a sharding tree) waits with the multi-card slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ import torch
 from ..models.params import dtype_of
 
 Params = Union[torch.nn.Module, Dict[str, torch.Tensor]]
+
+#: elements of one leaf updated at a time: five fp32 temporaries of a
+#: slice are 640 MB, where those of dbrx-132b's stacked expert leaf (1.06 B
+#: elements a layer) would be 21 GB
+UPDATE_SLICE = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +60,18 @@ class OptState(NamedTuple):
 
 
 def named(params: Params) -> Dict[str, torch.Tensor]:
-    """``params`` as a dictionary name -> tensor (a module's named
-    parameters, or the dictionary itself)."""
+    """``params`` as a dictionary name -> tensor: a module's named
+    parameters, or a dictionary whose nested dictionaries (such as
+    ``models.api.param_shapes``'s tree) give dotted names."""
     if isinstance(params, torch.nn.Module):
         return dict(params.named_parameters())
-    return dict(params)
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            out.update({f"{key}.{n}": t for n, t in named(value).items()})
+        else:
+            out[key] = value
+    return out
 
 
 def init(cfg: AdamWConfig, params: Params) -> OptState:
@@ -66,6 +80,16 @@ def init(cfg: AdamWConfig, params: Params) -> OptState:
     leaves = named(params)
     return OptState(step=0, mu={n: zeros(p) for n, p in leaves.items()},
                     nu={n: zeros(p) for n, p in leaves.items()})
+
+
+def state_shapes(cfg: AdamWConfig, param_shapes: Params) -> OptState:
+    """``init``'s state as ``meta`` tensors (shape and dtype, no storage):
+    step 0 and the moments in ``cfg.moment_dtype`` by parameter name."""
+    dt = dtype_of(cfg.moment_dtype)
+    leaves = named(param_shapes)
+    meta = lambda p: torch.empty(p.shape, dtype=dt, device="meta")  # noqa: E731
+    return OptState(step=0, mu={n: meta(p) for n, p in leaves.items()},
+                    nu={n: meta(p) for n, p in leaves.items()})
 
 
 def schedule(cfg: AdamWConfig, step: int) -> float:
@@ -116,19 +140,23 @@ def apply_updates(cfg: AdamWConfig, params: Params,
     c2 = float(f32(1.0) - f32(b2) ** f32(step))
     with torch.no_grad():
         for name, p in leaves.items():
-            g = grads[name]
-            g32 = (g.float() * scale).to(g.dtype).float()
-            m, v = state.mu[name], state.nu[name]
-            m32, v32 = m.float(), v.float()  # the moments themselves if fp32
-            m32.mul_(b1).add_(g32, alpha=1 - b1)
-            v32.mul_(b2).addcmul_(g32, g32, value=1 - b2)
-            p32 = p.float()
-            delta = (m32 / c1).div_((v32 / c2).sqrt_().add_(cfg.eps))
-            delta.add_(p32, alpha=cfg.weight_decay)
-            p32.sub_(delta, alpha=lr)
-            for dst, src in ((p, p32), (m, m32), (v, v32)):
-                if dst is not src:
-                    dst.copy_(src)
+            g = grads[name].reshape(-1)
+            p_all, m_all, v_all = (t.view(-1) for t in
+                                   (p, state.mu[name], state.nu[name]))
+            for lo in range(0, p_all.numel(), UPDATE_SLICE):
+                part = slice(lo, lo + UPDATE_SLICE)
+                p_, m, v = p_all[part], m_all[part], v_all[part]
+                g32 = (g[part].float() * scale).to(g.dtype).float()
+                m32, v32 = m.float(), v.float()  # the moments if fp32
+                m32.mul_(b1).add_(g32, alpha=1 - b1)
+                v32.mul_(b2).addcmul_(g32, g32, value=1 - b2)
+                p32 = p_.float()
+                delta = (m32 / c1).div_((v32 / c2).sqrt_().add_(cfg.eps))
+                delta.add_(p32, alpha=cfg.weight_decay)
+                p32.sub_(delta, alpha=lr)
+                for dst, src in ((p_, p32), (m, m32), (v, v32)):
+                    if dst is not src:
+                        dst.copy_(src)
     return params, OptState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -15,6 +15,8 @@ the reference (the same fp32 function through a few hundred more
 roundings); 2e-4 for prefill against decode, the reference's own bound
 (tests/test_models_smoke.py:114).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -302,10 +304,15 @@ def test_decode_matches_forward(arch):
 
 
 def test_unported_families_raise():
-    """Every family of the JAX package is served now (MoE and embedding
-    inputs since the zoo slice, tests/test_torch_zoo.py): a family the JAX
-    package does not have raises, an unknown architecture does, and so does
-    an encoder's decode step (it has no decode cell)."""
+    """Every family of the JAX package is served (MoE and embedding inputs
+    since the zoo slice, tests/test_torch_zoo.py), and nothing raises for
+    a family now: one the JAX package does not name goes to the
+    transformer, as the reference's ``model_module`` sends it, and gives
+    the reference's logits; an encoder's decode step is the reference's.
+    An unknown architecture still raises."""
+    jax, jnp = pytest.importorskip("jax"), pytest.importorskip("jax.numpy")
+    from repro.configs.base import ModelConfig as RefConfig
+    from repro.models import api as rapi
     qwen = reduced("qwen3-0.6b")
     moe = api.init_params(qwen.scaled(num_experts=4, experts_per_token=2),
                           generator(0, "cpu"))
@@ -313,17 +320,34 @@ def test_unported_families_raise():
     emb = api.init_params(qwen.scaled(embedding_inputs=True),
                           generator(0, "cpu"))
     assert not hasattr(emb, "embed")
-    with pytest.raises(ValueError, match="no model family 'mlp'"):
-        api.forward(qwen.scaled(family="mlp"), None, None)
     with pytest.raises(ModuleNotFoundError):
         get_config("no-such-arch")
     assert get_config("dbrx-132b").num_experts == 16
-    hubert = reduced("hubert-xlarge")
-    model = api.init_params(hubert, generator(0, "cpu"))
-    cache = api.init_cache(hubert, 1, 4, dtype="float32", device="cpu")
-    with pytest.raises(ValueError, match="encoder"):
-        api.decode_step(hubert, model, cache,
-                        torch.zeros((1, 1, hubert.d_model)), 0)
+    toks = _rng(9).integers(0, qwen.vocab_size, (2, 6))
+    for cfg in (qwen.scaled(family="mlp"), reduced("hubert-xlarge")):
+        ref_cfg = RefConfig(**dataclasses.asdict(cfg))
+        params = jax.tree.map(np.asarray, rapi.init_params(
+            ref_cfg, jax.random.PRNGKey(2)))
+        model = params_to_port(cfg, params, "cpu")
+        if cfg.embedding_inputs:
+            x = _rng(9).standard_normal((2, 6, cfg.d_model)).astype(
+                np.float32)
+        else:
+            x = toks.astype(np.int32)
+        inp = torch.from_numpy(x) if cfg.embedding_inputs else \
+            torch.from_numpy(x).long()
+        _close(api.forward(cfg, model, inp),
+               np.asarray(rapi.forward(ref_cfg, params, jnp.asarray(x))),
+               MODEL_TOL, relative_to_max=True)
+        cache = api.init_cache(cfg, 2, 4, dtype="float32", device="cpu")
+        ref_cache = rapi.init_cache(ref_cfg, 2, 4, dtype="float32")
+        for t in range(4):
+            lg, cache = api.decode_step(cfg, model, cache, inp[:, t:t + 1],
+                                        t)
+            ref_lg, ref_cache = rapi.decode_step(
+                ref_cfg, params, ref_cache, jnp.asarray(x[:, t:t + 1]),
+                jnp.asarray(t))
+            _close(lg, np.asarray(ref_lg), DECODE_TOL, relative_to_max=True)
 
 
 # --------------------------------------------------------------------------

@@ -278,9 +278,11 @@ def test_serving_forward_takes_no_gradient_and_ssm_training_raises():
     ssm_model = api.init_params(ssm, generator(0, CPU), trainable=True)
     assert api.forward(ssm, ssm_model, toks).grad_fn is None
     assert api.loss_fn(ssm, ssm_model, toks, toks).grad_fn is not None
-    # a family the JAX package does not have raises
-    with pytest.raises(ValueError, match="no model family"):
-        api.loss_fn(CFG.scaled(family="mlp"), model, toks, toks)
+    # a family the JAX package does not name trains as the transformer, as
+    # the reference's model_module sends it
+    assert torch.equal(api.loss_fn(CFG.scaled(family="mlp"), model, toks,
+                                   toks),
+                       api.loss_fn(CFG, model, toks, toks))
 
 
 def test_param_shapes_match_reference():
@@ -829,23 +831,77 @@ def test_trainer_actuator_matches_reference():
 # (k) the CLI and the example twins on the CPU
 # --------------------------------------------------------------------------
 
-def test_launch_train_on_the_cpu_plans_as_the_reference(capsys, tmp_path):
+def _same_start(monkeypatch, rtrain, losses):
+    """Both packages' ``launch.train`` from the same state: the port's
+    ``init_params`` hands it the reference's parameters (``PRNGKey(0)``,
+    as the reference's ``launch.train`` draws them), both straggler simulators
+    sample the same numpy task times (so the same masks and telemetry),
+    and the reference's trainer appends each step's loss to ``losses``."""
+    jax, _ = _jax()
+    from repro.models import api as rapi
+
+    def init_params(cfg, gen, trainable=False):
+        params = jax.tree.map(np.asarray, rapi.init_params(
+            _ref_cfg_of(cfg), jax.random.PRNGKey(0)))
+        return params_to_port(cfg, params, CPU, trainable=trainable)
+
+    def sample_times(self, step):
+        rng = np.random.default_rng(1000 + step)
+        return np.where(rng.random(self.n) < 0.2, 10.0, 1.0) * self.s
+
+    class Recording(rtrain.CodedTrainer):
+        def run_step(self, params, opt_state, step):
+            out = super().run_step(params, opt_state, step)
+            losses.append(float(out[2]["loss"]))
+            return out
+
+    monkeypatch.setattr(ptrain.api, "init_params", init_params)
+    monkeypatch.setattr(ptrain.StragglerSim, "sample_times", sample_times)
+    monkeypatch.setattr(rtrain.StragglerSim, "sample_times", sample_times)
+    monkeypatch.setattr(rtrain, "CodedTrainer", Recording)
+
+
+def _ref_cfg_of(cfg: ModelConfig):
+    from repro.configs.base import ModelConfig as RefConfig
+    return RefConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b",
+                                  "qwen3-moe-235b-a22b", "hubert-xlarge",
+                                  "internvl2-76b"])
+def test_launch_train_on_the_cpu_plans_as_the_reference(arch, capsys,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """At ``--scale tiny`` every family is a token-input model (no experts,
+    no embedding inputs; hubert stays bidirectional).  From the same
+    parameters and straggler draws (``_same_start``) the port prints the
+    reference's plan and re-plan lines, and its 12 losses are the
+    reference's within 1e-4 relative (the coded trainer's tolerance,
+    tests/test_torch_train.py::test_coded_trainer_three_steps_match_reference);
+    its checkpoint resumes."""
     from repro.launch import train as rtrain
-    argv = ["--scale", "tiny", "--steps", "12", "--replan-every", "4",
-            "--ckpt-every", "6", "--ckpt-dir", str(tmp_path)]
-    run = ptrain.main(["--device", CPU] + argv)
+    ref_losses = []
+    _same_start(monkeypatch, rtrain, ref_losses)
+    argv = ["--arch", arch, "--scale", "tiny", "--steps", "12",
+            "--replan-every", "4", "--ckpt-every", "6"]
+    run = ptrain.main(["--device", CPU, "--ckpt-dir", str(tmp_path)] + argv)
     ours = capsys.readouterr().out.splitlines()
-    rtrain.main(["--scale", "tiny", "--steps", "2"])
+    rtrain.main(argv)
     ref = capsys.readouterr().out.splitlines()
     assert ours[0] == ref[0] == "redundancy plan: n=8 c=2 (rate 7/8)"
+    assert [x for x in ours if x.startswith("re-plan")] == \
+        [x for x in ref if x.startswith("re-plan")]
     assert any(line.startswith("step    10 loss") for line in ours)
+    assert not run.cfg.num_experts and not run.cfg.embedding_inputs
+    assert run.cfg.causal == (arch != "hubert-xlarge")
     assert len(run.history) == 12 and run.start == 0
     losses = [h["loss"] for h in run.history]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
     assert [h["step"] for h in run.history] == list(range(1, 13))
     assert pckpt.latest_step(str(tmp_path)) == 12
-    resumed = ptrain.main(["--device", CPU] + argv[:2] + ["--steps", "14"]
-                          + argv[4:])
+    resumed = ptrain.main(["--device", CPU, "--ckpt-dir", str(tmp_path)]
+                          + argv[:4] + ["--steps", "14"] + argv[6:])
     assert "resumed from step 12" in capsys.readouterr().out
     assert resumed.start == 12 and len(resumed.history) == 2
     assert resumed.opt_state.step == 14
@@ -853,15 +909,16 @@ def test_launch_train_on_the_cpu_plans_as_the_reference(capsys, tmp_path):
     assert ptrain.exo_delta(ShiftedExp(1.0, 2.0), 1.0) is None
 
 
-def test_launch_train_refuses_other_families_and_the_missing_card(
-        monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptrain.main(["--arch", "dbrx-132b", "--device", CPU])
-    moe = get_config("qwen3-0.6b").scaled(family="moe")
-    monkeypatch.setattr(ptrain, "get_config", lambda name: moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptrain.main(["--arch", "qwen3-0.6b", "--device", CPU])
-    monkeypatch.undo()
+def test_launch_train_refuses_other_families_and_the_missing_card():
+    """At ``--scale full`` an embedding-input config refuses ``launch.train``'s
+    token batches and names the train cell; a tiny MoE trains."""
+    for arch in ("hubert-xlarge", "internvl2-76b"):
+        with pytest.raises(ValueError, match="build_train_cell"):
+            ptrain.main(["--arch", arch, "--scale", "full", "--device",
+                         CPU])
+    run = ptrain.main(["--arch", "dbrx-132b", "--steps", "2", "--device",
+                       CPU])
+    assert run.cfg.family == "moe" and len(run.history) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ptrain.main(["--scale", "tiny", "--steps", "1"])

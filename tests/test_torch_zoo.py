@@ -44,6 +44,9 @@ NEW_ARCHS = ["dbrx-132b", "qwen3-moe-235b-a22b", "hubert-xlarge",
 # loss within 1e-4 relative and each gradient within 1e-5 of its max
 # (tests/test_torch_ssm.py's LOSS_RTOL, GRAD_TOL)
 MODEL_TOL, LOSS_RTOL, GRAD_TOL = 1e-4, 1e-4, 1e-5
+# decode logits against the reference's and against prefill: 2e-4 of
+# max|logits|, tests/test_models_smoke.py:114's bound
+DECODE_TOL = 2e-4
 # moe_ffn in fp32: one layer, sums of a few dozen products in other orders
 MOE_TOL = 1e-5
 # moe_ffn in bf16: both sides round the expert products, the SwiGLU and
@@ -393,12 +396,33 @@ def test_decode_matches_forward(arch):
 
 
 def test_encoder_has_no_decode_step():
+    """The encoder has no decode cell (``applicable_shapes``), but its
+    decode step is the reference's: causal over the cache whatever
+    ``cfg.causal`` says.  Eight steps of frames: the logits of each and
+    the cache after, within DECODE_TOL of max|logits|."""
+    jax, jnp = _jax()
+    from repro.models import api as rapi
     cfg = reduced("hubert-xlarge")
-    model = api.init_params(cfg, generator(0, CPU))
-    cache = api.init_cache(cfg, 1, 4, dtype="float32", device=CPU)
-    with pytest.raises(ValueError, match="encoder"):
-        api.decode_step(cfg, model, cache, torch.zeros((1, 1, cfg.d_model)),
-                        0)
+    assert not cfg.causal and "decode_32k" not in applicable_shapes(cfg)
+    params, model = _ref_params(cfg, 4)
+    B, S = 2, 8
+    x, _ = _inputs(cfg, 8, B, S)
+    cache = api.init_cache(cfg, B, S, dtype="float32", device=CPU)
+    ref_cache = rapi.init_cache(_ref_cfg(cfg), B, S, dtype="float32")
+    for t in range(S):
+        lg, cache = api.decode_step(cfg, model, cache,
+                                    _torch_in(x[:, t:t + 1]), t)
+        ref_lg, ref_cache = rapi.decode_step(
+            _ref_cfg(cfg), params, ref_cache, jnp.asarray(x[:, t:t + 1]),
+            jnp.asarray(t))
+        assert lg.shape == ref_lg.shape == (B, 1, padded_vocab(cfg))
+        _close_to_max(_np(lg), np.asarray(ref_lg), DECODE_TOL)
+    for ours, theirs in zip(cache, ref_cache):
+        _close_to_max(_np(ours), np.asarray(theirs), DECODE_TOL)
+    # causal: the last step is the causal prefill's last row, not the
+    # bidirectional forward's
+    full = api.forward(cfg.scaled(causal=True), model, _torch_in(x))
+    _close_to_max(_np(lg[:, 0]), _np(full[:, -1]), DECODE_TOL)
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
