@@ -207,6 +207,26 @@ Phases, none of whose failures is caught (any fault exits non-zero):
       group, peak memory under 76 GB.
 13. One JSON line listing every kernel with its launches and times; the
     last line is the device record.
+14. The mesh (run before 13): a. qwen3-0.6b at full width and depth on
+    phase 9's coded batch (16 rows x 256, bf16 compute, remat full), 3
+    steps of ``launch.steps.build_train_cell(..., mesh=make_host_mesh())``
+    on one NCCL rank, the parameters ``torch.equal`` to the one-device
+    cell's after each step, 56 flash launches a step, the step's ms and
+    its one flat all-reduce's ms and bytes; b. the same model and batch on
+    two gloo ranks sharing the card (subprocesses, 8 rows = 4 whole
+    workers each, 2 steps): the ranks' parameters bit-equal, the first
+    loss within 1e-4 of a's, 56 launches a rank a step, each rank's step
+    ms and the host-staged gloo all-reduce's ms; c. the switches, each in
+    a subprocess with ``REPRO_OPT`` beside the switch-off run in this
+    process: ``params16`` on phase 12's one-layer qwen3-moe step through
+    the train cell (step ms, the cast groups' ms, peak memory),
+    ``norm_vjp`` and ``attn_probs16`` on qwen3-0.6b's step (step ms, the
+    plain flash backward's ms a layer; with and without
+    ``attn_probs16``, that backward on the card within 1e-4 of the same
+    function on the host), and ``remat="dots"`` (step ms, peak memory,
+    flash launches); each run's losses within 1e-2 of its model's
+    switch-off run's.  ``python3 chip_smoke.py --worker JOB.json`` is one
+    such subprocess.
 """
 from __future__ import annotations
 
@@ -483,6 +503,21 @@ NEW_CODED_CUT = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128,
 # hubert's decode step (causal over the cache, as the reference's): card
 # against host in fp32, a 2-layer cut, 16 positions, 1e-4 of max|logits|
 NEW_DECODE_LAYERS, NEW_DECODE_POSITIONS = 2, 16
+# phase 14: the mesh.  a: 3 steps on one NCCL rank against the one-device
+# cell (torch.equal after each); b: 2 steps on two gloo ranks sharing the
+# card (NCCL refuses two ranks on one device), the first loss within 1e-4
+# relative of a's (two halves' sums against one); c: the switch runs, 3
+# steps of qwen3-0.6b, 6 of qwen3-moe (1 of 94 layers), each switch's
+# losses within 1e-2 relative of its model's switch-off run's (bf16
+# rounding in other places: params16's bf16 expert gradients accumulate
+# before their cast back to fp32, as in the reference); the flash
+# backward with and without attn_probs16 on the card against the same
+# function on the host, dq, dk and dv within 1e-4 in relative Frobenius
+# norm (tests/test_torch_opt_flags.py holds the host's to the reference's)
+MESH_STEPS, MESH_GLOO_STEPS, MESH_GLOO_RANKS, MESH_LOSS_RTOL = 3, 2, 2, 1e-4
+SWITCH_STEPS, MOE_SWITCH_STEPS, SWITCH_LOSS_RTOL = 3, 6, 1e-2
+FLASH_BWD_HOST_RTOL = 1e-4
+MESH_WORKER_TIMEOUT = 300
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -2962,6 +2997,7 @@ def train_groups(cfg):
                 groups[g] = groups.get(g, 0.0) + k.duration / 1e3
         linked = sum(groups.values())
         groups["linked to no operation"] = busy_ms - linked
+        split.groups = groups
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"    by group: {g:26s} {ms:9.3f} ms  {ms / busy_ms:6.1%} "
                   f"of busy", flush=True)
@@ -3173,10 +3209,415 @@ def new_family_phase(seed: int) -> dict:
     return rows
 
 
+def mesh_batch(cfg, seed: int) -> dict:
+    """Phase 9's coded batch for ``cfg``: unique 8, n 8, c planned from
+    bimodal:10:0.2 (c 2: 16 rows x 256), the straggler mask of step 0,
+    as numpy arrays (tokens, labels, weights) and the plan."""
+    import numpy as np
+    from repro_torch.api import Scenario
+    from repro_torch.core.distributions import Scaling
+    from repro_torch.data import DataConfig, coded_batch, decode_example_weights
+    from repro_torch.launch import serve, steps
+    from repro_torch.runtime import (CodedStepConfig, CodedTrainer,
+                                     StragglerSim, best_fr_policy)
+    dist = serve.parse_dist(TRAIN_ARGV[TRAIN_ARGV.index("--straggle") + 1])
+    scaling = Scaling.DATA_DEPENDENT
+    policy, _ = best_fr_policy(Scenario(dist, scaling, NEW_TRAIN_WORKERS,
+                                        delta=1.0), "cuda")
+    step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, policy.c, NEW_TRAIN_UNIQUE)
+    data_cfg = DataConfig(cfg.vocab_size, NEW_TRAIN_SEQ, NEW_TRAIN_UNIQUE)
+    sim = StragglerSim(dist, scaling, n=NEW_TRAIN_WORKERS, s=policy.c,
+                       delta=1.0, seed=seed, device="cuda")
+    trainer = CodedTrainer(cfg, data_cfg, step_cfg, steps.default_opt_cfg(),
+                           alive_fn=sim.alive_fn(5.0))
+    toks, labs = coded_batch(data_cfg, 0, step_cfg.code)
+    coef = trainer.decode_coefficients(trainer.gather_alive(0))
+    w = decode_example_weights(step_cfg.code, coef, step_cfg.per_worker_rows,
+                               step_cfg.unique_batch)
+    return {"tokens": np.asarray(toks), "labels": np.asarray(labs),
+            "weights": np.asarray(w, np.float32), "c": policy.c}
+
+
+def mesh_shape():
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("coded", "train", NEW_TRAIN_SEQ,
+                       NEW_TRAIN_UNIQUE * 2)
+
+
+def timed_steps(step, n: int, counter) -> tuple:
+    """``n`` calls of ``step()`` (returning metrics): their losses, ms by
+    CUDA events, and ``counter``'s launches in each."""
+    losses, ms, launches = [], [], []
+    for _ in range(n):
+        counter.launches = 0
+        began = torch.cuda.Event(enable_timing=True)
+        ended = torch.cuda.Event(enable_timing=True)
+        began.record()
+        metrics = step()
+        ended.record()
+        torch.cuda.synchronize()
+        launches.append(counter.launches)
+        losses.append(float(metrics["loss"]))
+        ms.append(began.elapsed_time(ended))
+    return losses, ms, launches
+
+
+def all_reduce_ms(numel: int, reps: int = 3) -> float:
+    """One all-reduce of a flat fp32 buffer of ``numel`` elements on the
+    process group, by CUDA events (mean of ``reps`` after one warm-up)."""
+    import torch.distributed as dist
+    buf = torch.zeros(numel, device="cuda")
+    return time_ms(lambda: dist.all_reduce(buf), reps)
+
+
+def mesh_rank(job: dict) -> dict:
+    """Phase 14 b, one gloo rank of the card: the coded batch's rows of
+    this rank, ``MESH_GLOO_STEPS`` steps, the host-staged all-reduce's
+    ms, and whether every rank holds rank 0's parameters bit for bit."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import CodedStepConfig
+    rank, world = job["rank"], job["world"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = make_host_mesh(data=world, device="cuda", backend="gloo")
+    cfg = get_config("qwen3-0.6b")
+    batch = np.load(job["batch"])
+    step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, int(batch["c"]),
+                               NEW_TRAIN_UNIQUE)
+    opt_cfg = steps.default_opt_cfg()
+    params = api.init_params(cfg, generator(job["seed"], "cuda"),
+                             trainable=True)
+    opt = adamw.init(opt_cfg, params)
+    cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, mesh=mesh,
+                                  step_cfg=step_cfg)
+    x, labs, w = cell.shard(*(torch.from_numpy(batch[k]).cuda()
+                              for k in ("tokens", "labels", "weights")))
+    state = [params, opt]
+
+    def step():
+        state[0], state[1], m = cell.fn(state[0], state[1], x, labs, w)
+        return m
+
+    losses, ms, launches = timed_steps(step, MESH_GLOO_STEPS, flash_attention)
+    numel = sum(p.numel() for p in params.parameters()) + 1
+    reduce_ms = all_reduce_ms(numel, reps=1)
+    equal = True
+    for p in params.parameters():
+        theirs = p.detach().clone()
+        dist.broadcast(theirs, src=0)
+        equal = equal and torch.equal(theirs, p.detach())
+    dist.barrier()
+    dist.destroy_process_group()
+    return {"rank": rank, "rows": [cell.rows.start, cell.rows.stop],
+            "losses": losses, "ms": ms, "launches": launches,
+            "all_reduce_ms": reduce_ms, "bytes": 4 * numel, "equal": equal}
+
+
+def switch_run(job: dict) -> dict:
+    """Phase 14 c, one run of the train cell on one card under this
+    process's ``REPRO_OPT``: ``job["arch"]`` at full width (``layers``
+    of its depth), ``remat``, ``steps`` steps of the coded batch; the
+    losses, ms, flash launches, peak memory, one profiled step's device
+    time by group and, for a dense model, the plain flash backward's ms
+    a layer at the training shape (with ``job["host_check"]``, also its
+    distance from the same function on the host)."""
+    import numpy as np
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.layers import _OPTS
+    from repro_torch.optim import adamw
+    cfg = get_config(job["arch"])
+    cfg = cfg.scaled(num_layers=job.get("layers") or cfg.num_layers,
+                     remat=job.get("remat", cfg.remat))
+    batch = np.load(job["batch"])
+    opt_cfg = dataclasses.replace(steps.default_opt_cfg(),
+                                  moment_dtype=job.get("moments", "float32"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, generator(job["seed"], "cuda"),
+                             trainable=True)
+    opt = adamw.init(opt_cfg, params)
+    cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, "cuda")
+    x, labs, w = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels", "weights"))
+    state = [params, opt]
+
+    def step():
+        state[0], state[1], m = cell.fn(state[0], state[1], x, labs, w)
+        return m
+
+    losses, ms, launches = timed_steps(step, job["steps"], flash_attention)
+    split = train_groups(cfg)
+    profile_call(f"{cfg.name} step (REPRO_OPT={','.join(sorted(_OPTS))})",
+                 step, split=split)
+    out = {"switches": sorted(_OPTS), "remat": cfg.remat, "losses": losses,
+           "ms": ms, "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "groups": getattr(split, "groups", {})}
+    if not cfg.num_experts:
+        from repro_torch.models.layers import _flash_train_bwd
+        from repro_torch.kernels.flash_attention import flash_attention_lse
+        B, S, _, H, KV, D = TRAIN_FLASH_SHAPES[1][0]
+        gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+        q, k, v = (torch.randn((B, S, h, D), generator=gen,
+                               device="cuda").bfloat16() for h in (H, KV, KV))
+        o, lse = flash_attention_lse(q, k, v, True)
+        dout = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+        out["flash_bwd_ms"] = time_ms(
+            lambda: _flash_train_bwd(q, k, v, o, lse, dout, True, 1024),
+            reps=5)
+        if job.get("host_check"):
+            args = (q, k, v, o, lse, dout)
+            card = _flash_train_bwd(*args, True, 1024)
+            host = _flash_train_bwd(*(a.cpu() for a in args), True, 1024)
+            out["flash_bwd_host_rel"] = max(
+                float(torch.linalg.vector_norm(a.cpu().float() - b.float())
+                      / torch.linalg.vector_norm(b.float()))
+                for a, b in zip(card, host))
+    del state, params, opt, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_workers(jobs: list, env_opts: list, label: str) -> list:
+    """Each job in a ``python3 chip_smoke.py --worker`` process (with
+    ``REPRO_OPT`` from ``env_opts``), all at once; waits for all, kills
+    all on a failure or on MESH_WORKER_TIMEOUT, raises with the failed
+    ones' errors.  Returns their results."""
+    import os
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    procs = []
+    for i, (job, opts) in enumerate(zip(jobs, env_opts)):
+        stem = build / f"mesh_{label}_{i}"
+        job = dict(job, out=f"{stem}.out.json")
+        Path(f"{stem}.job.json").write_text(json.dumps(job))
+        env = dict(os.environ, REPRO_OPT=opts)
+        with open(f"{stem}.log", "w") as log:
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 f"{stem}.job.json"], env=env, stdout=log,
+                stderr=subprocess.STDOUT), job, Path(f"{stem}.log")))
+    errors, results = [], []
+    deadline = time.perf_counter() + MESH_WORKER_TIMEOUT
+    try:
+        for p, job, log in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            text = log.read_text()
+            if p.returncode:
+                errors.append(f"{label} worker exit {p.returncode}: "
+                              f"{text[-3000:]}")
+                continue
+            for line in text.splitlines():
+                print(f"    [{label}] {line}", flush=True)
+            results.append(json.loads(Path(job["out"]).read_text()))
+    except subprocess.TimeoutExpired:
+        errors.append(f"{label}: a worker ran past {MESH_WORKER_TIMEOUT} s")
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results
+
+
+def worker_main(path: str) -> None:
+    """One subprocess of phase 14 (``--worker JOB.json``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase 14 worker needs the card: "
+                           "torch.cuda.is_available() is False")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = json.loads(Path(path).read_text())
+    result = mesh_rank(job) if job["kind"] == "rank" else switch_run(job)
+    Path(job["out"]).write_text(json.dumps(result))
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def mesh_phase(seed: int) -> dict:
+    """Phase 14: training on a device mesh, and the switches.  Returns
+    the flash launches of a's meshed steps."""
+    import copy
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.layers import _OPTS
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import CodedStepConfig
+    phase("14. the mesh")
+    t_phase = time.perf_counter()
+    assert not _OPTS, f"run chip_smoke.py without REPRO_OPT, not {_OPTS}"
+    cfg = get_config("qwen3-0.6b")
+    batch = mesh_batch(cfg, seed + 14)
+    batch_path = ROOT / "build" / "mesh_batch.npz"
+    np.savez(batch_path, **batch)
+    step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, batch["c"],
+                               NEW_TRAIN_UNIQUE)
+    x, labs, w = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels", "weights"))
+    opt_cfg = steps.default_opt_cfg()
+    shape = mesh_shape()
+
+    print("a. one NCCL rank against the one-device cell:", flush=True)
+    assert not dist.is_initialized()
+    mesh = make_host_mesh()
+    assert dist.get_backend() == "nccl" and mesh.shape == (1, 1), mesh
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one = api.init_params(cfg, generator(seed + 14, "cuda"), trainable=True)
+    meshed = copy.deepcopy(one)
+    one_opt, mesh_opt = adamw.init(opt_cfg, one), adamw.init(opt_cfg, meshed)
+    plain = steps.build_train_cell(cfg, shape, opt_cfg, "cuda")
+    cell = steps.build_train_cell(cfg, shape, opt_cfg, mesh=mesh,
+                                  step_cfg=step_cfg)
+    assert cell.rows == slice(0, shape.global_batch)
+    state = [meshed, mesh_opt]
+
+    def mesh_step():
+        state[0], state[1], m = cell.fn(state[0], state[1], x, labs, w)
+        return m
+
+    losses, ms, launches = [], [], []
+    for i in range(MESH_STEPS):
+        one, one_opt, m_one = plain.fn(one, one_opt, x, labs, w)
+        l_, t_, n_ = timed_steps(mesh_step, 1, flash_attention)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(one.parameters(), state[0].parameters()))
+        same_m = all(torch.equal(one_opt.mu[k], state[1].mu[k]) and
+                     torch.equal(one_opt.nu[k], state[1].nu[k])
+                     for k in one_opt.mu)
+        print(f"  step {i + 1}: loss {l_[0]:.6f} (one-device cell "
+              f"{float(m_one['loss']):.6f}) {t_[0]:.2f} ms (CUDA events), "
+              f"flash launches {n_[0]}; parameters torch.equal to the "
+              f"one-device cell's: {same}, moments: {same_m}", flush=True)
+        assert same and same_m and l_[0] == float(m_one["loss"])
+        losses += l_
+        ms += t_
+        launches += n_
+    numel = sum(p.numel() for p in one.parameters()) + 1
+    reduce_ms = all_reduce_ms(numel)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {cfg.name}: {numel - 1:,} parameters; meshed step median "
+          f"{median(ms[1:]):.2f} ms; its all-reduce: one flat fp32 buffer "
+          f"of {4 * numel / 1e9:.3f} GB, {reduce_ms:.3f} ms alone on the "
+          f"NCCL group of 1 rank (CUDA events); peak {peak_gb:.2f} GB for "
+          f"two models and their moments", flush=True)
+    assert launches == [TRAIN_LAUNCHES_PER_STEP] * MESH_STEPS, launches
+    first_loss = losses[0]
+    del one, one_opt, meshed, mesh_opt, state, plain, cell, m_one
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    print(f"b. {MESH_GLOO_RANKS} gloo ranks sharing the card:", flush=True)
+    store = ROOT / "build" / "mesh_store"
+    store.unlink(missing_ok=True)
+    jobs = [{"kind": "rank", "rank": r, "world": MESH_GLOO_RANKS,
+             "store": str(store), "batch": str(batch_path),
+             "seed": seed + 14} for r in range(MESH_GLOO_RANKS)]
+    ranks = run_workers(jobs, [""] * MESH_GLOO_RANKS, "gloo")
+    rows = shape.global_batch // MESH_GLOO_RANKS
+    for r in ranks:
+        print(f"  rank {r['rank']}: rows {r['rows']} "
+              f"({rows // step_cfg.per_worker_rows} whole workers), losses "
+              f"{', '.join(f'{v:.6f}' for v in r['losses'])}, step ms "
+              f"{', '.join(f'{v:.2f}' for v in r['ms'])} (CUDA events), "
+              f"flash launches {r['launches']}, all-reduce of "
+              f"{r['bytes'] / 1e9:.3f} GB {r['all_reduce_ms']:.1f} ms "
+              f"(gloo, host-staged: says nothing of NCCL), parameters "
+              f"bit-equal to rank 0's: {r['equal']}", flush=True)
+        assert r["rows"] == [r["rank"] * rows, (r["rank"] + 1) * rows]
+        assert r["equal"], r
+        assert r["launches"] == [TRAIN_LAUNCHES_PER_STEP] * MESH_GLOO_STEPS
+        rel = abs(r["losses"][0] - first_loss) / abs(first_loss)
+        print(f"    first loss against a's {first_loss:.6f}: relative "
+              f"{rel:.2e} (limit {MESH_LOSS_RTOL:g})", flush=True)
+        assert rel <= MESH_LOSS_RTOL, rel
+    assert len({tuple(r["losses"]) for r in ranks}) == 1
+
+    print("c. the switches (each switch in a subprocess with REPRO_OPT):",
+          flush=True)
+    dense = dict(kind="switch", arch=cfg.name, steps=SWITCH_STEPS,
+                 batch=str(batch_path), seed=seed + 14)
+    moe = dict(dense, arch=ZOO_MOE, layers=NEW_TRAIN[ZOO_MOE]["layers"],
+               steps=MOE_SWITCH_STEPS,
+               moments=NEW_TRAIN[ZOO_MOE]["moments"])
+    runs = {"dense off": switch_run(dict(dense, host_check=True)),
+            "remat dots": switch_run(dict(dense, remat="dots")),
+            "moe off": switch_run(moe)}
+    # one at a time: two processes on the card would share its time
+    for name, job in (("norm_vjp", dense),
+                      ("attn_probs16", dict(dense, host_check=True)),
+                      ("params16", moe)):
+        (runs[name],) = run_workers([job], [name], name)
+        assert runs[name]["switches"] == [name], runs[name]["switches"]
+    for name, res in runs.items():
+        casts = {g: round(v, 3) for g, v in res["groups"].items()
+                 if g.startswith("casts")}
+        print(f"  {name:12s} ({res['remat']}): losses "
+              f"{', '.join(f'{v:.4f}' for v in res['losses'])}; median "
+              f"warm step {median(res['ms'][1:]):.2f} ms (CUDA events); "
+              f"flash launches a step {res['launches']}; peak "
+              f"{res['peak_gb']:.2f} GB; cast groups (profiled) {casts}"
+              + (f"; plain flash backward {res['flash_bwd_ms']:.4f} ms a "
+                 f"layer" if "flash_bwd_ms" in res else ""), flush=True)
+        assert all(math.isfinite(v) for v in res["losses"]), res["losses"]
+    for name in ("dense off", "remat dots", "norm_vjp", "attn_probs16"):
+        assert runs[name]["launches"] == \
+            [TRAIN_LAUNCHES_PER_STEP] * SWITCH_STEPS, name
+    for name, base in (("remat dots", "dense off"), ("norm_vjp", "dense off"),
+                       ("attn_probs16", "dense off"),
+                       ("params16", "moe off")):
+        on, off = runs[name]["losses"], runs[base]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+        print(f"  {name} against the {base} losses: max relative "
+              f"{rel:.2e} (limit {SWITCH_LOSS_RTOL:g})", flush=True)
+        assert rel <= SWITCH_LOSS_RTOL, (name, on, off)
+    for name in ("dense off", "attn_probs16"):
+        rel = runs[name]["flash_bwd_host_rel"]
+        print(f"  {name}: flash backward (dq, dk, dv) on the card against "
+              f"the host's: relative {rel:.2e} (limit "
+              f"{FLASH_BWD_HOST_RTOL:g})", flush=True)
+        assert rel <= FLASH_BWD_HOST_RTOL, (name, rel)
+    print(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return {"launches": sum(launches)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--worker", default=None,
+                        help="run one phase 14 subprocess job and exit")
     args = parser.parse_args()
+    if args.worker:
+        worker_main(args.worker)
+        return
     smi = device_phase()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import CONFIG, get_config
@@ -3192,6 +3633,7 @@ def main() -> None:
     ssm_rows = ssm_phase(args.seed)
     zoo_launches = zoo_phase(args.seed)
     new_rows = new_family_phase(args.seed)
+    mesh_launches = mesh_phase(args.seed)
 
     phase("13. kernels")
     kernels = []
@@ -3220,11 +3662,13 @@ def main() -> None:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the one training shape, driven by phase 9's unmeshed cell and phase
+    # 14a's cell on a mesh of one NCCL rank: one row, both runs' launches
     kernels.append({
         "name": "flash_attention[qwen3-0.6b training forward with lse "
                 "B=16,S=256,H=16,KV=8,D=128,bf16,causal]",
         "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-        "launches": train_flash["launches"],
+        "launches": train_flash["launches"] + mesh_launches["launches"],
         "max_abs_err": train_flash["max_abs_err"], "ms": train_flash["ms"],
         "plain_ms": train_flash["plain_ms"],
         "bound_ms": train_flash["bound_ms"],

@@ -26,8 +26,10 @@ header+size check (``is_intact``).  ``save_async`` copies the leaves to
 host memory at once and writes them on a worker thread.
 
 Restore: ``restore`` returns numpy leaves, or with ``device=`` tensors on
-that device (the reference's ``restore_sharded``), in the structure of
-the tree given.
+that device, in the structure of the tree given; ``restore_sharded`` puts
+each leaf on its sharding's rank device (a ``launch.mesh`` data-only
+mesh holds whole leaves on every rank, so a job may come back on another
+number of ranks than it left on).
 """
 from __future__ import annotations
 
@@ -249,3 +251,23 @@ def restore(root: str, step: int, tree_like: Any,
         else:
             out.append(a)
     return rebuild(out), manifest
+
+
+def restore_sharded(root: str, step: int, tree_like: Any, shardings: Any):
+    """``restore`` onto this rank's device.  ``shardings``: one
+    ``sharding.NamedSharding`` for every leaf, or a tree of them
+    congruent with ``tree_like`` (``launch.mesh.named(mesh, specs)``).
+    Each leaf comes back whole; a mesh whose ``model`` axis is larger
+    than 1 raises (the port places nothing over it yet)."""
+    from ..launch.mesh import check_data_only
+    from ..sharding import NamedSharding
+    shards = [shardings] if isinstance(shardings, NamedSharding) \
+        else _flatten(shardings)[0]
+    for sh in shards:
+        check_data_only(sh.mesh)
+    if len(shards) != 1 and len(shards) != len(_flatten(tree_like)[0]):
+        raise ValueError(f"{len(shards)} shardings for "
+                         f"{len(_flatten(tree_like)[0])} leaves")
+    if len({sh.mesh.device for sh in shards}) != 1:
+        raise ValueError("the shardings name more than one device")
+    return restore(root, step, tree_like, device=shards[0].mesh.device)

@@ -64,8 +64,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
-    remat: str = "full"              # none | full | dots (training only; dots
-                                     # is not ported and raises)
+    remat: str = "full"              # none | full | dots (training only)
     # attention implementation name and flash block sizes; the port's
     # full-sequence attention is always its flash kernel, and only the
     # blockwise decode path (kv_len) reads flash_block_kv

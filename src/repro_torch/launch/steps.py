@@ -8,37 +8,58 @@ Cell kinds (from ``configs.SHAPES``):
   prefill -> prefill_step(params, tokens) -> logits
   decode  -> serve_step(params, cache, tokens, pos) -> (logits, cache)
 
-On one device a ``Cell`` has no shardings, mesh, ``jitted`` or ``lower``:
-its ``fn`` is called directly on real tensors, and its ``args`` describe
-them as ``meta`` tensors (shape and dtype, no storage), leaf for leaf the
-reference's ``ShapeDtypeStruct``s.  ``args[0]`` is
-``models.api.param_shapes``' tree; ``fn`` takes the model module that
-holds parameters of those shapes (``models.api.init_params``,
-``convert.params_to_port``).  The train and decode steps update their
-``donate`` arguments in place (the parameters and the optimizer state;
-the cache), where the reference donates their buffers.  An
-embedding-input family (hubert-xlarge, internvl2-76b) takes (B, S, d)
-embeddings in the compute dtype and separate int32 labels: its train
-cell is how it trains at full width.
+A ``Cell`` has no ``jitted`` or ``lower``: its ``fn`` is called directly
+on real tensors, and its ``args`` describe the global inputs as ``meta``
+tensors (shape and dtype, no storage), leaf for leaf the reference's
+``ShapeDtypeStruct``s.  ``args[0]`` is ``models.api.param_shapes``'
+tree; ``fn`` takes the model module that holds parameters of those
+shapes (``models.api.init_params``, ``convert.params_to_port``).  The
+train and decode steps update their ``donate`` arguments in place (the
+parameters and the optimizer state; the cache), where the reference
+donates their buffers.  An embedding-input family (hubert-xlarge,
+internvl2-76b) takes (B, S, d) embeddings in the compute dtype and
+separate int32 labels: its train cell is how it trains at full width.
 
-The reference's train step has a ``params16`` branch (one fp32 -> bf16
-cast of the masters a step, under its ``REPRO_OPT`` switch); it waits
-with the other ``REPRO_OPT`` switches (ROADMAP Queue 1), so the train
-cell is the reference's default step.
+On a ``launch.mesh`` mesh (``mesh=``; none is the one-device cell) every
+rank holds the whole parameters and optimizer state and its own
+contiguous rows of the batch, ``Cell.rows``: those of ``batch_spec`` for
+the train and prefill cells, those of ``cache_specs``' batch axis for the
+decode cell (none for the SSM families, whose state the reference
+replicates: every rank then runs the whole batch).  ``fn`` takes the
+rank's rows (``Cell.shard`` cuts them from the global inputs).  The train
+step computes sum(nll * w) / B over its rows, runs the backward and puts
+every gradient and the loss through ONE all-reduce of one flat fp32
+buffer over the (pod, data) ranks (NCCL on the card, gloo on the CPU or
+for ranks that share a card), then runs the same AdamW on every rank; on
+one rank that is the one-device step's arithmetic, bit for bit.  Prefill
+and decode need no collective.  A mesh whose ``model`` axis is larger
+than 1 raises (ROADMAP Queue 1), and so does an MoE whose ranks hold
+other than whole token groups of ``models.moe.GROUP_SIZE`` (a rank
+groups its own tokens, the reference the global batch's).
+
+Under the ``params16`` switch (``models.layers.opt_enabled``) the train
+step casts the fp32 masters to the compute dtype once a step and runs
+the model on the cast tensors (``torch.func.functional_call``); the
+gradients come back to fp32 through the cast.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .._device import DEFAULT_DEVICE, generator, resolve
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config
 from ..models import api, frontends
+from ..models.layers import opt_enabled
+from ..models.moe import GROUP_SIZE
 from ..models.params import dtype_of
 from ..optim import adamw
-from ..runtime.coded_step import make_train_step
+from ..runtime.coded_step import (CodedStepConfig, make_train_step,
+                                  weighted_loss_fn)
+from .mesh import P, Mesh, batch_spec, check_data_only, local_rows
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -58,6 +79,14 @@ class Cell:
     device: torch.device
     donate: Tuple[int, ...] = ()    # arguments the step updates in place
     opt_cfg: Optional[adamw.AdamWConfig] = None
+    mesh: Optional[Mesh] = None
+    rows: Optional[slice] = None    # this rank's rows of the batch (None: all)
+
+    def shard(self, *inputs):
+        """This rank's rows of batch inputs given whole (their leading
+        axis)."""
+        return tuple(x if self.rows is None else x[self.rows]
+                     for x in inputs)
 
     def materialize(self, seed: int = 0) -> Tuple[Any, ...]:
         """Real inputs of ``args``' shapes and dtypes on ``device``, drawn
@@ -65,7 +94,8 @@ class Cell:
         a train cell), a fresh optimizer state, token ids (embeddings from
         ``models.frontends`` for an embedding-input family) and labels
         uniform over the vocabulary, unit weights, a zero cache and
-        position 0."""
+        position 0.  On a mesh every rank draws the same global batch and
+        keeps its ``rows`` (a zero cache of its rows)."""
         cfg, gen = self.cfg, generator(seed, self.device)
         params = api.init_params(cfg, gen, trainable=self.kind == "train")
 
@@ -79,22 +109,122 @@ class Cell:
 
         if self.kind == "train":
             _, _, tok, lab, w = self.args
-            return (params, adamw.init(self.opt_cfg, params), inputs(tok),
-                    inputs(lab), torch.ones(w.shape, device=self.device))
+            return (params, adamw.init(self.opt_cfg, params),
+                    *self.shard(inputs(tok), inputs(lab),
+                                torch.ones(w.shape, device=self.device)))
         if self.kind == "prefill":
-            return params, inputs(self.args[1])
+            return (params, *self.shard(inputs(self.args[1])))
         _, cache, tok, _ = self.args
-        return (params, _zeros(cache, self.device), inputs(tok),
+        rows = None if self.rows is None else \
+            self.rows.stop - self.rows.start
+        return (params, _zeros(cache, self.device, rows),
+                *self.shard(inputs(tok)),
                 torch.zeros((), dtype=torch.int32, device=self.device))
 
 
-def _zeros(tree, device: torch.device):
-    """A zero tensor on ``device`` for each meta tensor of ``tree``."""
+def _zeros(tree, device: torch.device, rows: Optional[int] = None):
+    """A zero tensor on ``device`` for each meta tensor of ``tree``
+    (``rows`` rows on the batch axis, axis 1, when given)."""
     if isinstance(tree, torch.Tensor):
-        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+        shape = list(tree.shape)
+        if rows is not None:
+            shape[1] = rows
+        return torch.zeros(shape, dtype=tree.dtype, device=device)
     if isinstance(tree, dict):
-        return {k: _zeros(v, device) for k, v in tree.items()}
-    return tuple(_zeros(v, device) for v in tree)
+        return {k: _zeros(v, device, rows) for k, v in tree.items()}
+    return tuple(_zeros(v, device, rows) for v in tree)
+
+
+def _placement(mesh: Optional[Mesh], device) -> torch.device:
+    """The cell's device: the mesh's rank device, else ``device``."""
+    if mesh is None:
+        return resolve(DEFAULT_DEVICE if device is None else device)
+    check_data_only(mesh)
+    if device is not None and resolve(device).type != mesh.device.type:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def _batch_rows(mesh: Optional[Mesh], global_batch: int
+                ) -> Optional[slice]:
+    if mesh is None:
+        return None
+    return local_rows(mesh, batch_spec(mesh, global_batch)[0], global_batch)
+
+
+def _check_moe_groups(cfg: ModelConfig, rows: Optional[slice], batch: int,
+                      seq: int) -> None:
+    """Raise for an MoE whose ranks hold part of the batch in other than
+    whole token groups: a rank groups its own tokens (``models.moe``)
+    where the reference groups the global batch's, so the capacity and
+    the dropped tokens would differ."""
+    if not cfg.num_experts or rows is None or \
+            rows.stop - rows.start == batch:
+        return
+    tokens = (rows.stop - rows.start) * seq
+    if tokens % GROUP_SIZE:
+        raise NotImplementedError(
+            f"an MoE with {tokens} tokens a rank: a rank's tokens must be "
+            f"whole groups of {GROUP_SIZE} to be the reference's groups "
+            f"(ROADMAP Queue 1, MoE token groups across ranks)")
+
+
+class _Bound(torch.nn.Module):
+    """``loss(model, *args)`` as a module's forward, so that
+    ``torch.func.functional_call`` can run it on other tensors."""
+
+    def __init__(self, model: torch.nn.Module, loss: Callable):
+        super().__init__()
+        self.model, self.loss = model, loss
+
+    def forward(self, *args):
+        return self.loss(self.model, *args)
+
+
+def _params16(loss: Callable, dtype: torch.dtype) -> Callable:
+    """``loss`` on the fp32 masters cast once to ``dtype`` (the reference's
+    cast-before-gather); other dtypes pass as they are."""
+    def cast_loss(params, *args):
+        cast = {f"model.{n}": p.to(dtype) if p.dtype == torch.float32 else p
+                for n, p in adamw.named(params).items()}
+        return torch.func.functional_call(_Bound(params, loss), cast, args)
+    return cast_loss
+
+
+def all_reduce_flat(lval: torch.Tensor, grads: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, grads) summed over the process group's ranks (a mesh spans
+    them all) in ONE all-reduce of one flat fp32 buffer; each gradient
+    comes back as a view of it, in its dtype."""
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1).float() for n in names]
+                     + [lval.reshape(1).float()])
+    dist.all_reduce(flat)
+    out, off = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
+        off += g.numel()
+    return flat[off], out
+
+
+def _train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                share: Optional[float]) -> Callable:
+    """``make_train_step`` with the ``params16`` cast and, on a mesh
+    (``share``: the rank's part of the global mean, its rows over the
+    global batch and over the ranks that hold the same rows), the rank's
+    loss scaled to its share and ``all_reduce_flat`` before AdamW."""
+    loss = weighted_loss_fn(cfg)
+    if share is not None and share != 1.0:
+        rows_mean = loss
+
+        def loss(*args):
+            return rows_mean(*args) * share
+    if opt_enabled("params16"):
+        loss = _params16(loss, dtype_of(cfg.compute_dtype))
+    return make_train_step(cfg, opt_cfg, loss,
+                           None if share is None else all_reduce_flat)
 
 
 def default_opt_cfg() -> adamw.AdamWConfig:
@@ -111,55 +241,90 @@ def _token_specs(cfg: ModelConfig, batch: int, seq: int) -> torch.Tensor:
 
 def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
                      opt_cfg: Optional[adamw.AdamWConfig] = None,
-                     device=DEFAULT_DEVICE) -> Cell:
+                     device=None, mesh: Optional[Mesh] = None,
+                     step_cfg: Optional[CodedStepConfig] = None) -> Cell:
     """The coded training step: ``weighted_loss_fn``'s value and gradient,
     then ``adamw.apply_updates``; returns (params, opt_state, metrics)
     with ``metrics`` = loss, grad_norm, lr.  Labels are int32 (B, S) and
-    the per-example decode weights fp32 (B,)."""
+    the per-example decode weights fp32 (B,).  ``step_cfg``: the coded
+    batch's plan, whose workers a rank's rows must hold whole."""
     opt_cfg = opt_cfg or default_opt_cfg()
     pshapes = api.param_shapes(cfg)
     b, s = shape.global_batch, shape.seq_len
+    dev = _placement(mesh, device)
+    rows = _batch_rows(mesh, b)
+    _check_moe_groups(cfg, rows, b, s)
+    share = None
+    if mesh is not None:
+        n = rows.stop - rows.start
+        # ranks holding the same rows each count them once in the sum
+        share = n / b / (mesh.size // (b // n))
+        if step_cfg is not None and n % step_cfg.per_worker_rows:
+            raise ValueError(f"{n} rows a rank split worker blocks of "
+                             f"{step_cfg.per_worker_rows} rows")
     args = (pshapes, adamw.state_shapes(opt_cfg, pshapes),
             _token_specs(cfg, b, s), _meta((b, s), torch.int32),
             _meta((b,), torch.float32))
     return Cell(arch=cfg.name, shape=shape.name, kind="train",
-                fn=make_train_step(cfg, opt_cfg), args=args, cfg=cfg,
-                device=resolve(device), donate=(0, 1), opt_cfg=opt_cfg)
+                fn=_train_step(cfg, opt_cfg, share), args=args, cfg=cfg,
+                device=dev, donate=(0, 1), opt_cfg=opt_cfg, mesh=mesh,
+                rows=rows)
 
 
 def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig,
-                       device=DEFAULT_DEVICE) -> Cell:
+                       device=None, mesh: Optional[Mesh] = None) -> Cell:
     def prefill_step(params, tokens):
         return api.forward(cfg, params, tokens)
 
     args = (api.param_shapes(cfg),
             _token_specs(cfg, shape.global_batch, shape.seq_len))
+    dev = _placement(mesh, device)
+    rows = _batch_rows(mesh, shape.global_batch)
+    _check_moe_groups(cfg, rows, shape.global_batch, shape.seq_len)
     return Cell(arch=cfg.name, shape=shape.name, kind="prefill",
-                fn=prefill_step, args=args, cfg=cfg, device=resolve(device))
+                fn=prefill_step, args=args, cfg=cfg, device=dev, mesh=mesh,
+                rows=rows)
 
 
 def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig,
-                      device=DEFAULT_DEVICE) -> Cell:
-    """One serve step: a new token with a KV (or SSM) cache of seq_len."""
+                      device=None, mesh: Optional[Mesh] = None) -> Cell:
+    """One serve step: a new token with a KV (or SSM) cache of seq_len.
+    On a mesh the batch follows the cache's: ``cache_specs``' batch axis
+    (axis 1 of every cache tensor)."""
     def serve_step(params, cache, tokens, pos):
         return api.decode_step(cfg, params, cache, tokens, pos)
 
     b = shape.global_batch
     args = (api.param_shapes(cfg), api.cache_shapes(cfg, b, shape.seq_len),
             _token_specs(cfg, b, 1), _meta((), torch.int32))
+    dev = _placement(mesh, device)
+    rows = None
+    if mesh is not None:
+        (elem,) = {spec[1] for spec in _spec_leaves(api.cache_specs(cfg))}
+        rows = local_rows(mesh, elem, b)
+    _check_moe_groups(cfg, rows, b, 1)
     return Cell(arch=cfg.name, shape=shape.name, kind="decode",
-                fn=serve_step, args=args, cfg=cfg, device=resolve(device),
-                donate=(1,))
+                fn=serve_step, args=args, cfg=cfg, device=dev,
+                donate=(1,), mesh=mesh, rows=rows)
+
+
+def _spec_leaves(tree) -> list:
+    """The ``P`` leaves of a tree of dicts and tuples."""
+    if isinstance(tree, P):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return [x for v in tree for x in _spec_leaves(v)]
 
 
 def build_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
-               device=DEFAULT_DEVICE) -> Cell:
+               device=None, mesh: Optional[Mesh] = None) -> Cell:
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.scaled(**overrides)
     shape = SHAPES[shape_name]
     if shape.kind == "train":
-        return build_train_cell(cfg, shape, device=device)
+        return build_train_cell(cfg, shape, device=device, mesh=mesh)
     if shape.kind == "prefill":
-        return build_prefill_cell(cfg, shape, device)
-    return build_decode_cell(cfg, shape, device)
+        return build_prefill_cell(cfg, shape, device, mesh)
+    return build_decode_cell(cfg, shape, device, mesh)

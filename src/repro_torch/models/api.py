@@ -1,8 +1,9 @@
 """Family dispatch: one model API over the ported architectures (a port of
 the JAX package's ``models/api.py``).
 
-    init_params / param_shapes / forward / train_forward / loss_fn
-    init_cache / cache_shapes / decode_step / padded_vocab
+    init_params / param_shapes / partition_specs
+    forward / train_forward / loss_fn
+    init_cache / cache_shapes / cache_specs / decode_step / padded_vocab
 
 ``ssm_lm`` serves the pure-SSM family (mamba2) and the SSM +
 shared-attention hybrid (zamba2); ``transformer`` serves every other
@@ -56,6 +57,12 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return tree
 
 
+def partition_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
+    """The reference's partition-spec tree (``launch.mesh.P`` leaves),
+    congruent with ``param_shapes``."""
+    return model_module(cfg).partition_specs(cfg, fsdp, tp)
+
+
 def forward(cfg: ModelConfig, params, tokens, positions=None):
     """Logits (B, S, V_pad) of tokens (B, S) (embeddings (B, S, d) for an
     embedding-input family): the prefill path."""
@@ -82,6 +89,11 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     """``init_cache``'s tree as ``meta`` tensors (shape and dtype, no
     storage): the reference's ``cache_shapes``."""
     return model_module(cfg).cache_shapes(cfg, batch, max_len, dtype)
+
+
+def cache_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
+    """The reference's spec tree of ``init_cache``."""
+    return model_module(cfg).cache_specs(cfg, fsdp, tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):

@@ -6,21 +6,86 @@ branches of ``attention`` (one-token decode, full sequence through the
 flash kernel, the same with its recompute backward when gradients are
 taken, blockwise over a cache with a valid prefix), SwiGLU, the token
 cross-entropy, and the initialisers with the reference's laws drawn from a
-``torch.Generator``.  The reference's sharding constraints and its
-``REPRO_OPT`` switches have no counterpart: the port computes their
-defaults.
+``torch.Generator``.
+
+The reference's ``REPRO_OPT`` switches are read once, at import
+(``opt_enabled``): ``norm_vjp`` (``rms_norm`` through a hand-written
+backward), ``attn_probs16`` (score-sized probabilities in the compute
+dtype), ``params16`` (``launch.steps``' train cell) and ``moe_a2a``
+(``models.moe``, where it changes nothing).  ``resolve_spec`` resolves
+the reference's symbolic activation specs; on a rank's own rows of a
+data-only mesh a constraint moves nothing, so ``constrain`` returns its
+input and ``activation_mesh`` holds no state.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional
+import os
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention import flash_attention, flash_attention_lse
+from ..sharding import P
 
 _NEG = -1e30
+
+
+# --------------------------------------------------------------------------
+# Switches and activation specs
+# --------------------------------------------------------------------------
+
+# Per-optimization switches (set before import):
+#   REPRO_OPT=norm_vjp,attn_probs16,params16,moe_a2a
+_OPTS = set(filter(None, os.environ.get("REPRO_OPT", "").split(",")))
+
+
+def opt_enabled(name: str) -> bool:
+    return name in _OPTS
+
+
+def activation_mesh(mesh):
+    """The reference's context manager that ``constrain`` resolves its
+    specs against.  The port's ``constrain`` moves nothing on any mesh it
+    runs on, so this holds no state: a context that yields ``mesh``."""
+    return contextlib.nullcontext(mesh)
+
+
+def resolve_spec(mesh, shape, *elems):
+    """The reference's ``constrain`` resolution of ``elems`` for a global
+    tensor of ``shape`` on ``mesh``, as a ``sharding.P``: "batch" is the
+    (pod, data) prefix that divides the dimension (then data alone), a
+    mesh axis name is kept if it divides the dimension, anything else is
+    None."""
+    sizes = mesh.sizes
+    resolved = []
+    for i, e in enumerate(elems):
+        dim = shape[i] if i < len(shape) else 1
+        if e == "batch":
+            axes = tuple(a for a in ("pod", "data") if a in sizes)
+            while axes and dim % math.prod(sizes[a] for a in axes) != 0:
+                axes = axes[1:]
+            resolved.append(axes if len(axes) > 1 else
+                            (axes[0] if axes else None))
+        elif isinstance(e, str) and e in sizes and dim % sizes[e] == 0:
+            resolved.append(e)
+        else:
+            resolved.append(None)
+    return P(*resolved)
+
+
+def constrain(x: torch.Tensor, *elems) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` with symbolic axes
+    (``resolve_spec`` gives the spec it would pin).  The port's tensors
+    are a rank's own rows of a data-only mesh (or the whole of a
+    one-device run), which every such spec already describes: the
+    identity."""
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -59,11 +124,42 @@ def embed_init(generator: torch.Generator, shape,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32 end to end, cast to ``x.dtype``."""
+    """RMSNorm in fp32 end to end, cast to ``x.dtype`` (autograd's
+    backward); under ``norm_vjp`` through ``RMSNormVJP``."""
+    if opt_enabled("norm_vjp"):
+        return RMSNormVJP.apply(x, scale, eps)
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+class RMSNormVJP(torch.autograd.Function):
+    """RMSNorm with fp32 row statistics and ``x.dtype`` element streams
+    (the reference's ``_rms_norm_custom``): the backward keeps every
+    (..., d)-sized tensor in ``x.dtype`` and only the per-row reductions
+    in fp32,  dx = r * (g*w - x_hat * mean(g*w*x_hat)),
+    r = rsqrt(var + eps)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        x32 = x.float()
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        r = torch.rsqrt(var + eps)                       # (..., 1) fp32
+        ctx.save_for_backward(x, scale, r)
+        return (x32 * r).to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, r = ctx.saved_tensors
+        dtype = x.dtype
+        gw = g * scale.to(dtype)
+        m = (gw * x).float().sum(dim=-1, keepdim=True) / x.shape[-1]
+        rx = r * r * r * m                               # (..., 1) fp32
+        dx = gw * r.to(dtype) - x * rx.to(dtype)
+        dscale = (g * (x * r.to(dtype))).float().sum(
+            dim=tuple(range(x.dim() - 1))).to(scale.dtype)
+        return dx, dscale, None
 
 
 def rope_frequencies(head_dim: int, theta: float = 1e4,
@@ -114,42 +210,57 @@ def _mask(q_pos, kpos, causal: bool, kv_len, window: int = 0) -> torch.Tensor:
 def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int,
                      window: int = 0):
     """(dq, dk, dv) of the full-sequence attention: the reference's
-    ``_flash_train_bwd`` (fp32 path), blockwise over ``block_kv`` keys,
-    with its causal and sliding-window mask.
+    ``_flash_train_bwd``, blockwise over ``block_kv`` keys, with its
+    causal and sliding-window mask.
     Each block's probabilities are rebuilt from ``lse``; no (Sq, Sk)
     tensor outlives its block.  K/V are read per q head (GQA) and dK/dV
-    summed over each group of H / KV heads."""
+    summed over each group of H / KV heads.  Under ``attn_probs16`` a
+    block's probabilities and dS are one tensor each in ``v.dtype``, as
+    the reference's branch; its products take those values and return
+    fp32 (the reference's ``preferred_element_type``): their operands are
+    widened to fp32, in which a product of two bf16 values is exact."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
     block = min(block_kv, sk)
     scale = 1.0 / math.sqrt(hd)
+    probs16 = opt_enabled("attn_probs16")
     q32 = q.float()
     do32 = dout.float()
     delta = torch.einsum("bqhd,bqhd->bhq", do32, out.float())   # (B, H, Sq)
-    k32 = _repeat_kv(k, n_rep).float()
-    v32 = _repeat_kv(v, n_rep).float()
+    kr = _repeat_kv(k, n_rep)
+    vr = _repeat_kv(v, n_rep)
     q_pos = (sk - sq) + torch.arange(sq, device=q.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
     dq = torch.zeros_like(q32)
-    dk = torch.empty_like(k32)
-    dv = torch.empty_like(v32)
+    dk = torch.empty(kr.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
     for start in range(0, sk, block):
         # the reference pads the last block; its padded keys are masked,
         # so a shorter last block gives the same sums
-        kblk = k32[:, start:start + block]
-        vblk = v32[:, start:start + block]
+        kblk = kr[:, start:start + block]
+        vblk = vr[:, start:start + block]
         kpos = start + torch.arange(kblk.shape[1], device=q.device)
-        s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, kblk)
+        s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, kblk.float())
         if causal:
             s = torch.where(_mask(q_pos, kpos, True, None, window)[None, None],
                             s, neg)
-        p = torch.exp(s - lse[..., None])
-        dv[:, start:start + block] = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vblk)
-        ds = p * (dp - delta[..., None]) * scale
-        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kblk)
-        dk[:, start:start + block] = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vblk.float())
+        rows = slice(start, start + block)
+        if probs16:
+            p = torch.exp(s - lse[..., None]).to(vblk.dtype)
+            dv[:, rows] = torch.einsum("bhqk,bqhd->bkhd", p.float(),
+                                       dout.to(p.dtype).float())
+            ds = p * ((dp - delta[..., None]) * scale).to(p.dtype)
+            dq += torch.einsum("bhqk,bkhd->bqhd", ds.float(), kblk.float())
+            dk[:, rows] = torch.einsum("bhqk,bqhd->bkhd", ds.float(),
+                                       q.to(ds.dtype).float())
+        else:
+            p = torch.exp(s - lse[..., None])
+            dv[:, rows] = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+            ds = p * (dp - delta[..., None]) * scale
+            dq += torch.einsum("bhqk,bkhd->bqhd", ds, kblk.float())
+            dk[:, rows] = torch.einsum("bhqk,bqhd->bkhd", ds, q32)
     if n_rep > 1:
         dk = dk.view(b, sk, kv, n_rep, hd).sum(dim=3)
         dv = dv.view(b, sk, kv, n_rep, hd).sum(dim=3)
@@ -252,6 +363,43 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Activation rematerialisation
+# --------------------------------------------------------------------------
+
+#: the products without batch dimensions: a projection's (B·S, d) @ (d, n)
+#: (``torch.matmul`` folds the leading dimensions into one ``mm``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn: Callable, *args):
+    """``fn(*args)`` under the config's rematerialisation: ``"none"``
+    keeps every activation; ``"full"`` recomputes the whole call in the
+    backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``); ``"dots"`` saves the outputs of the products
+    without batch dimensions and recomputes the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``), attention's batched products
+    and the flash and scan kernels' launches included, in the order of
+    the forward."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                     f"{remat!r}")
 
 
 # --------------------------------------------------------------------------

@@ -22,13 +22,15 @@ import torch.nn.functional as F
 from .._device import DEFAULT_DEVICE, resolve
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_chunked, ssd_scan
+from ..sharding import P
 from . import layers as L
 from .params import dtype_of
 
-__all__ = ["CONV_K", "N_GROUPS", "SSDTrain", "causal_conv",
-           "causal_conv_step", "dims", "init_block_state",
-           "init_layer_params", "layer_shapes", "mamba2_block",
-           "mamba2_block_decode", "ssd_chunked", "ssd_decode_step"]
+__all__ = ["CONV_K", "N_GROUPS", "SSDTrain", "block_state_specs",
+           "causal_conv", "causal_conv_step", "dims", "init_block_state",
+           "init_layer_params", "layer_shapes", "layer_specs",
+           "mamba2_block", "mamba2_block_decode", "ssd_chunked",
+           "ssd_decode_step"]
 
 CONV_K = 4   # depthwise causal conv kernel width (Mamba default)
 N_GROUPS = 1
@@ -59,6 +61,45 @@ def layer_shapes(cfg: ModelConfig, nl: int) -> Dict[str, Tuple[int, ...]]:
         "dt_bias": (nl, h),
         "gate_norm": (nl, d_in),
         "out_proj": (nl, d_in, d),
+    }
+
+
+def layer_specs(cfg: ModelConfig, fsdp: str = "data",
+                tp: str = "model") -> Dict[str, P]:
+    """The reference's ``P`` of each stacked layer parameter."""
+    d_in, h, p, n = dims(cfg)
+    inner = tp if d_in % 16 == 0 else None
+    head = tp if h % 16 == 0 else None
+    return {
+        "norm": P(None, None),
+        "wz": P(None, fsdp, inner),
+        "wx": P(None, fsdp, inner),
+        "wB": P(None, fsdp, None),
+        "wC": P(None, fsdp, None),
+        "wdt": P(None, fsdp, head),
+        "conv_x": P(None, None, inner),
+        "conv_B": P(None, None, None),
+        "conv_C": P(None, None, None),
+        "A_log": P(None, head),
+        "D": P(None, head),
+        "dt_bias": P(None, head),
+        "gate_norm": P(None, inner),
+        "out_proj": P(None, inner, fsdp),
+    }
+
+
+def block_state_specs(cfg: ModelConfig, fsdp: str = "data",
+                      tp: str = "model") -> Dict[str, P]:
+    """The reference's ``P`` of each decode-state tensor (no batch
+    axis: the reference replicates the SSM state over the batch axes)."""
+    d_in, heads, p, n = dims(cfg)
+    head = tp if heads % 16 == 0 else None
+    inner = tp if d_in % 16 == 0 else None
+    return {
+        "h": P(None, None, head, None, None),
+        "conv_x": P(None, None, None, inner),
+        "conv_B": P(None, None, None, None),
+        "conv_C": P(None, None, None, None),
     }
 
 

@@ -10,11 +10,18 @@ capacity-based behaviour); the router uses softmax-then-top-k with
 probabilities renormalised over the selected experts (DBRX/Qwen3
 convention).
 
-The reference's ``constrain`` calls and its ``moe_a2a`` switch only say
-how GSPMD shards the expert and group axes over a mesh; on one device they
-are the identity, so the port has neither.  The router, dispatch, expert
-and combine products are plain matrix products outside any kernel, as the
-reference leaves them to XLA (``torch.einsum``, in ``x.dtype``).
+The reference's ``constrain`` calls and its ``moe_a2a`` switch say how
+GSPMD moves the expert outputs between the expert and the group axes of
+a mesh (an all-to-all of the capacity rows, under the switch, instead of
+a sum over the expert axis).  A rank of the port's data-only mesh holds
+its own groups and every expert, so there is nothing to move: the port
+has the one path, and ``moe_a2a`` is accepted (``layers.opt_enabled``)
+and changes nothing.  On a mesh a rank groups its own tokens, which are
+the reference's groups only when they hold whole groups of
+``GROUP_SIZE`` (``launch.steps`` refuses other meshes for an MoE).  The
+router, dispatch, expert and combine products are plain matrix products
+outside any kernel, as the reference leaves them to XLA
+(``torch.einsum``, in ``x.dtype``).
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+#: tokens a group (the reference's ``moe_ffn`` default)
+GROUP_SIZE = 256
 
 
 def expert_capacity(group_size: int, num_experts: int, top_k: int,
@@ -71,7 +81,7 @@ def route(xg: torch.Tensor, router: torch.Tensor, top_k: int,
 def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
             capacity_factor: float = 1.25,
-            group_size: int = 256) -> torch.Tensor:
+            group_size: int = GROUP_SIZE) -> torch.Tensor:
     """Top-k capacity-dispatch MoE with SwiGLU experts: x (B, S, d),
     router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d) -> (B, S, d)
     in ``x.dtype``."""

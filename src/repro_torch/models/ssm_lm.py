@@ -11,7 +11,7 @@ kernel's sliding window) and its decode keeps a ring-buffer cache of
 ``min(attn_window or max_len, max_len)`` slots, so decode state is
 O(window).  ``forward`` (prefill) takes no gradient; ``train_forward`` is
 the same loop with gradients (the scan through ``mamba2.SSDTrain``, the
-attention through ``layers.FlashTrain``) and ``remat="full"``'s per-layer
+attention through ``layers.FlashTrain``) and ``cfg.remat``'s per-layer
 checkpoint of the mamba layers, as the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
@@ -19,14 +19,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve
 from ..configs.base import ModelConfig
+from ..sharding import P
 from . import layers as L
 from . import mamba2 as M
 from .params import StackedParams, dtype_of, parameter
-from .transformer import check_remat, padded_vocab
+from .transformer import padded_vocab
 
 
 def _n_attn_sites(cfg: ModelConfig) -> int:
@@ -71,6 +71,27 @@ class Mamba2LM(torch.nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         return forward(self.cfg, self, tokens, positions)
+
+
+def partition_specs(cfg: ModelConfig, fsdp: str = "data",
+                    tp: str = "model") -> Dict[str, Any]:
+    """The reference's ``P`` tree, congruent with ``param_shapes``."""
+    tree: Dict[str, Any] = {
+        "embed": P(tp, fsdp),
+        "layers": M.layer_specs(cfg, fsdp, tp),
+        "final_norm": P(None),
+        "lm_head": P(fsdp, tp),
+    }
+    if _n_attn_sites(cfg):
+        head = tp if cfg.num_heads % 16 == 0 else None
+        kvh = tp if cfg.num_kv_heads % 16 == 0 else None
+        tree["shared_attn"] = {
+            "attn_norm": P(None), "wq": P(fsdp, head, None),
+            "wk": P(fsdp, kvh, None), "wv": P(fsdp, kvh, None),
+            "wo": P(head, None, fsdp), "mlp_norm": P(None),
+            "w_gate": P(fsdp, tp), "w_up": P(fsdp, tp), "w_down": P(tp, fsdp),
+        }
+    return tree
 
 
 @torch.no_grad()
@@ -158,8 +179,8 @@ def _forward(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor], remat: str) -> torch.Tensor:
     """The reference's period loop: ``attn_every`` mamba layers, then the
     shared block, per site; then the trailing mamba layers.  Under
-    ``remat="full"`` each mamba layer is checkpointed (the shared block is
-    not, as in the reference)."""
+    ``remat`` "full" or "dots" each mamba layer is checkpointed (the
+    shared block is not, as in the reference)."""
     x = params.embed[tokens].to(dtype_of(cfg.compute_dtype))
     b, s = x.shape[:2]
     if positions is None:
@@ -167,10 +188,7 @@ def _forward(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
     lps = params.layers.unbind()
 
     def mamba(i, x):
-        if remat == "full":
-            return checkpoint(_mamba_layer, cfg, lps[i], x,
-                              use_reentrant=False)
-        return _mamba_layer(cfg, lps[i], x)
+        return L.remat_call(remat, _mamba_layer, cfg, lps[i], x)
 
     ae = cfg.attn_every if cfg.attn_every > 0 else cfg.num_layers
     done = 0
@@ -198,12 +216,12 @@ def train_forward(cfg: ModelConfig, params: Mamba2LM, tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``forward`` with gradients: the reference's train path.
 
-    ``cfg.remat``: ``"full"`` recomputes each mamba layer in the backward
-    (``torch.utils.checkpoint``), so a layer's scan kernel launches twice
-    a step; ``"none"`` keeps every activation.  ``"dots"`` is not ported
-    and raises.
+    ``cfg.remat`` (``layers.remat_call``, per mamba layer): ``"full"``
+    recomputes each mamba layer in the backward; ``"dots"`` saves its
+    projections' outputs and recomputes the rest; under either a layer's
+    scan kernel launches twice a step.  ``"none"`` keeps every
+    activation.
     """
-    check_remat(cfg)
     return _forward(cfg, params, tokens, positions, cfg.remat)
 
 
@@ -242,6 +260,21 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  dtype: str = "bfloat16") -> Dict[str, Any]:
     """``init_cache``'s tree as ``meta`` tensors."""
     return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, fsdp: str = "data",
+                tp: str = "model") -> Dict[str, Any]:
+    """The reference's ``P`` tree of ``init_cache``: the SSM state's
+    (``mamba2.block_state_specs``) and each attention site's ring, whose
+    KV heads shard over ``tp`` when their count divides 16; neither names
+    a batch axis."""
+    state: Dict[str, Any] = {"ssm": M.block_state_specs(cfg, fsdp, tp)}
+    if _n_attn_sites(cfg):
+        kvh = tp if cfg.num_kv_heads % 16 == 0 else None
+        spec = P(None, None, None, kvh, None)
+        state["attn_k"] = spec
+        state["attn_v"] = spec
+    return state
 
 
 @torch.no_grad()

@@ -23,10 +23,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve
 from ..configs.base import ModelConfig
+from ..sharding import P
 from . import layers as L
 from .moe import moe_ffn
 from .params import StackedParams, dtype_of, parameter
@@ -58,6 +58,45 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     else:
         shapes.update(w_gate=(nl, d, f), w_up=(nl, d, f), w_down=(nl, f, d))
     return shapes
+
+
+def partition_specs(cfg: ModelConfig, fsdp: str = "data",
+                    tp: str = "model") -> dict:
+    """The reference's ``P`` tree, congruent with ``param_shapes``: TP
+    shards the head / ffn / expert / vocab axes over ``tp`` where the
+    count divides 16 (the production model-axis size), FSDP a
+    complementary axis over ``fsdp``; KV projections whose head count
+    does not divide 16 stay replicated over ``tp``."""
+    def head_spec(nheads):
+        return tp if nheads % 16 == 0 else None
+
+    specs_l = {
+        "attn_norm": P(None, None),
+        "wq": P(None, fsdp, head_spec(cfg.num_heads), None),
+        "wk": P(None, fsdp, head_spec(cfg.num_kv_heads), None),
+        "wv": P(None, fsdp, head_spec(cfg.num_kv_heads), None),
+        "wo": P(None, head_spec(cfg.num_heads), None, fsdp),
+        "mlp_norm": P(None, None),
+    }
+    if cfg.qk_norm:
+        specs_l["q_norm"] = P(None, None)
+        specs_l["k_norm"] = P(None, None)
+    if cfg.num_experts:
+        ep = tp if cfg.num_experts % 16 == 0 else None
+        ffn_tp = None if ep else tp
+        specs_l.update(router=P(None, fsdp, None),
+                       w_gate=P(None, ep, fsdp, ffn_tp),
+                       w_up=P(None, ep, fsdp, ffn_tp),
+                       w_down=P(None, ep, ffn_tp, fsdp))
+    else:
+        specs_l.update(w_gate=P(None, fsdp, tp), w_up=P(None, fsdp, tp),
+                       w_down=P(None, tp, fsdp))
+    tree: dict = {"layers": specs_l}
+    if not cfg.embedding_inputs:
+        tree["embed"] = P(tp, fsdp)
+    tree["final_norm"] = P(None)
+    tree["lm_head"] = P(fsdp, tp)
+    return tree
 
 
 class TransformerLM(torch.nn.Module):
@@ -192,10 +231,7 @@ def _forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     for lp in params.layers.unbind():
-        if remat == "full":
-            x = checkpoint(_layer, cfg, lp, x, positions, use_reentrant=False)
-        else:
-            x = _layer(cfg, lp, x, positions)
+        x = L.remat_call(remat, _layer, cfg, lp, x, positions)
     return _unembed(cfg, params, x)
 
 
@@ -208,26 +244,18 @@ def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
     return _forward(cfg, params, tokens, positions, remat="none")
 
 
-def check_remat(cfg: ModelConfig) -> None:
-    """Raise for a ``cfg.remat`` the training paths do not port."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} is not ported (\"dots\" is a "
-            f"ROADMAP Queue 1 item); use \"full\" or \"none\"")
-
-
 def train_forward(cfg: ModelConfig, params: TransformerLM,
                   tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``forward`` with gradients: the reference's train path.
 
-    ``cfg.remat``: ``"full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-    scan body), so a layer's flash kernel launches twice a step;
-    ``"none"`` keeps every activation.  ``"dots"`` (save the matmul
-    outputs) is not ported and raises.
+    ``cfg.remat`` (``layers.remat_call``, per layer): ``"full"``
+    recomputes each layer in the backward (the reference's
+    ``jax.checkpoint`` of the scan body); ``"dots"`` saves the
+    projections' outputs and recomputes the rest; under either a layer's
+    flash kernel launches twice a step.  ``"none"`` keeps every
+    activation.
     """
-    check_remat(cfg)
     return _forward(cfg, params, tokens, positions, cfg.remat)
 
 
@@ -257,6 +285,16 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  dtype: str = "bfloat16"):
     """``init_cache``'s pair as ``meta`` tensors."""
     return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
+    """KV-cache specs (L, B, S, KV, hd): the batch over ``fsdp``; the KV
+    heads over ``tp`` when their count divides 16, else the head dim."""
+    if cfg.num_kv_heads % 16 == 0:
+        spec = P(None, fsdp, None, tp, None)
+    else:
+        spec = P(None, fsdp, None, None, tp)
+    return (spec, spec)
 
 
 @torch.no_grad()

@@ -16,7 +16,7 @@ returns them.  Each tensor is updated on its own, in slices of at most
 not of the model or of a stacked expert leaf; the arithmetic is
 elementwise, so the slices give the same values.  ``state_shapes`` is the
 state as ``meta`` tensors (``launch.steps``' train cell); ``state_specs``
-(a sharding tree) waits with the multi-card slice (ROADMAP Queue 1).
+its partition specs, the moments' those of their parameters.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Callable, Dict, Iterable, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from ..sharding import P
 from ..models.params import dtype_of
 
 Params = Union[torch.nn.Module, Dict[str, torch.Tensor]]
@@ -90,6 +91,14 @@ def state_shapes(cfg: AdamWConfig, param_shapes: Params) -> OptState:
     meta = lambda p: torch.empty(p.shape, dtype=dt, device="meta")  # noqa: E731
     return OptState(step=0, mu={n: meta(p) for n, p in leaves.items()},
                     nu={n: meta(p) for n, p in leaves.items()})
+
+
+def state_specs(param_specs) -> OptState:
+    """Partition specs of the state: the step replicated, each moment
+    sharded as its parameter (``param_specs``: ``models.api.
+    partition_specs``' tree), by parameter name."""
+    specs = named(param_specs)
+    return OptState(step=P(), mu=dict(specs), nu=dict(specs))
 
 
 def schedule(cfg: AdamWConfig, step: int) -> float:

@@ -96,13 +96,20 @@ def _value_and_grad(loss: Callable, params, *args):
     return lval.detach(), dict(zip(leaves, grads))
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    loss: Optional[Callable] = None,
+                    reduce: Optional[Callable] = None) -> Callable:
     """(params, opt_state, tokens, labels, weights) -> (params, opt, metrics)
-    with ``metrics`` = loss, grad_norm, lr."""
-    loss = weighted_loss_fn(cfg)
+    with ``metrics`` = loss, grad_norm, lr.  ``loss`` replaces
+    ``weighted_loss_fn(cfg)``; ``reduce(loss, grads) -> (loss, grads)``
+    runs between the backward and AdamW (``launch.steps``' cells on a
+    mesh: their all-reduce)."""
+    loss = weighted_loss_fn(cfg) if loss is None else loss
 
     def step(params, opt_state, tokens, labels, weights):
         lval, grads = _value_and_grad(loss, params, tokens, labels, weights)
+        if reduce is not None:
+            lval, grads = reduce(lval, grads)
         params, opt_state, metrics = adamw.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics["loss"] = lval

@@ -385,19 +385,33 @@ def test_loss_and_grads_match_reference(arch, remat):
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_remat_full_equals_none_bit_for_bit(arch):
-    model = api.init_params(reduced(arch), generator(1, CPU), trainable=True)
-    toks, labs = (torch.from_numpy(t) for t in _tokens(reduced(arch), 1, 2,
-                                                       24))
+    """``"full"`` and ``"dots"`` (which keeps each mamba layer's
+    projections and recomputes the rest, the scan kernel's call included)
+    give the loss and gradients of ``"none"`` bit for bit on the CPU;
+    ``"dots"``'s equal the reference's ``"dots"`` ones (LOSS_RTOL,
+    GRAD_TOL).  (``"dots"`` raised before it was ported.)"""
+    jax, jnp = _jax()
+    from repro.models import api as rapi
+    cfg = reduced(arch)
+    params, model = _ref_params(cfg, seed=1)
+    toks, labs = _tokens(cfg, 1, 2, 24)
     out = []
-    for remat in ("none", "full"):
-        loss = api.loss_fn(reduced(arch).scaled(remat=remat), model, toks,
-                           labs)
+    for remat in ("none", "full", "dots"):
+        loss = api.loss_fn(cfg.scaled(remat=remat), model,
+                           torch.from_numpy(toks), torch.from_numpy(labs))
         out.append((loss, torch.autograd.grad(loss,
                                               list(model.parameters()))))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="dots"):
-        api.loss_fn(reduced(arch).scaled(remat="dots"), model, toks, labs)
+    for other in out[1:]:
+        assert torch.equal(out[0][0], other[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], other[1]))
+    ref_val, ref_g = jax.jit(jax.value_and_grad(
+        lambda p: rapi.loss_fn(_ref_cfg(cfg.scaled(remat="dots")), p,
+                               jnp.asarray(toks), jnp.asarray(labs))))(params)
+    np.testing.assert_allclose(float(out[2][0].detach()), float(ref_val),
+                               rtol=LOSS_RTOL)
+    ref_flat = _flat(jax.tree.map(np.asarray, ref_g))
+    for (name, _), g in zip(model.named_parameters(), out[2][1]):
+        _close_to_max(_np(g), ref_flat[name], GRAD_TOL)
 
 
 def test_zamba2_forward_matches_reference():

@@ -245,22 +245,37 @@ def test_weighted_loss_and_grads_match_reference_at_tiny():
 
 
 def test_remat_full_equals_none_and_dots_raises():
-    """``remat="full"`` recomputes each layer in the backward: the same
-    loss and gradients as keeping the activations, bit for bit on the
-    CPU."""
-    model = api.init_params(CFG, generator(1, CPU), trainable=True)
+    """``remat="full"`` recomputes each layer in the backward and
+    ``"dots"`` recomputes all but the projections' outputs: the same loss
+    and gradients as keeping the activations, bit for bit on the CPU;
+    ``"dots"`` also gives the reference's ``"dots"`` loss and gradients
+    (LOSS_RTOL, GRAD_TOL).  (It raised before ``"dots"`` was ported; the
+    name stays.)"""
+    jax, jnp = _jax()
+    from repro.configs.base import ModelConfig as RefConfig
+    from repro.models import api as rapi
+    ref_cfg = RefConfig(**dataclasses.asdict(CFG.scaled(remat="dots")))
+    params, model = _ref_params(ref_cfg, seed=1)
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, 257, (2, 20)))
-    labs = torch.from_numpy(rng.integers(0, 257, (2, 20)))
+    toks = rng.integers(0, 257, (2, 20)).astype(np.int32)
+    labs = rng.integers(0, 257, (2, 20)).astype(np.int32)
     out = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         cfg = CFG.scaled(remat=remat)
-        loss = api.loss_fn(cfg, model, toks, labs)
+        loss = api.loss_fn(cfg, model, torch.from_numpy(toks),
+                           torch.from_numpy(labs))
         out.append((loss, torch.autograd.grad(loss, list(model.parameters()))))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="dots"):
-        api.loss_fn(CFG.scaled(remat="dots"), model, toks, labs)
+    for other in out[1:]:
+        assert torch.equal(out[0][0], other[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], other[1]))
+    ref_val, ref_g = jax.value_and_grad(
+        lambda p: rapi.loss_fn(ref_cfg, p, jnp.asarray(toks),
+                               jnp.asarray(labs)))(params)
+    np.testing.assert_allclose(float(out[2][0].detach()), float(ref_val),
+                               rtol=LOSS_RTOL)
+    ref_flat = _flat(jax.tree.map(np.asarray, ref_g))
+    for (name, _), g in zip(model.named_parameters(), out[2][1]):
+        _close_to_max(_np(g), ref_flat[name], GRAD_TOL)
 
 
 def test_serving_forward_takes_no_gradient_and_ssm_training_raises():
