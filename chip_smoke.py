@@ -214,9 +214,10 @@ Phases, none of whose failures is caught (any fault exits non-zero):
     cell's after each step, 56 flash launches a step, the step's ms and
     its one flat all-reduce's ms and bytes; b. the same model and batch on
     two gloo ranks sharing the card (subprocesses, 8 rows = 4 whole
-    workers each, 2 steps): the ranks' parameters bit-equal, the first
-    loss within 1e-4 of a's, 56 launches a rank a step, each rank's step
-    ms and the host-staged gloo all-reduce's ms; c. the switches, each in
+    workers each, 2 steps, each rank holding its FSDP blocks over data):
+    the ranks' losses equal, the first within 1e-4 of a's, 56 launches a
+    rank a step, each rank's step ms, the parameters it holds and the
+    host-staged gloo all-reduce's ms; c. the switches, each in
     a subprocess with ``REPRO_OPT`` beside the switch-off run in this
     process: ``params16`` on phase 12's one-layer qwen3-moe step through
     the train cell (step ms, the cast groups' ms, peak memory),
@@ -227,6 +228,21 @@ Phases, none of whose failures is caught (any fault exits non-zero):
     flash launches); each run's losses within 1e-2 of its model's
     switch-off run's.  ``python3 chip_smoke.py --worker JOB.json`` is one
     such subprocess.
+15. The transformer families on a (data 2, model 2) mesh (run after 14
+    and before 13): four gloo ranks sharing the card, each a worker
+    subprocess, holding their blocks (FSDP over data; heads, FFN,
+    experts and vocab over model).  a. qwen3-0.6b at full width and
+    depth: 2 train steps of phase 9's coded batch, a prefill and 4
+    decode steps, each rank's losses, grad norms, parameter and
+    first-moment blocks, logits and cache against the one-device cells
+    on the card (tolerances at ``MESH2D_*``), a planted fault (a rank
+    that keeps its own partial sum of the attention's wo) caught, 56
+    flash launches a rank a step; b. one layer of qwen3-moe-235b-a22b at
+    full width, its experts over model, an fp32 prefill against the
+    one-device one, each rank's peak memory; c. each rank's parameter
+    and moment bytes against the one-device cell's, and the collectives
+    gloo ran (``parallel.calls``); d. the flash kernel at a rank's
+    training route, a row of the kernels line.
 """
 from __future__ import annotations
 
@@ -505,8 +521,9 @@ NEW_CODED_CUT = dict(num_layers=2, d_model=64, num_heads=4, d_ff=128,
 NEW_DECODE_LAYERS, NEW_DECODE_POSITIONS = 2, 16
 # phase 14: the mesh.  a: 3 steps on one NCCL rank against the one-device
 # cell (torch.equal after each); b: 2 steps on two gloo ranks sharing the
-# card (NCCL refuses two ranks on one device), the first loss within 1e-4
-# relative of a's (two halves' sums against one); c: the switch runs, 3
+# card (NCCL refuses two ranks on one device), each holding its FSDP
+# blocks, the first loss within 1e-4 relative of a's (two halves' sums
+# against one); c: the switch runs, 3
 # steps of qwen3-0.6b, 6 of qwen3-moe (1 of 94 layers), each switch's
 # losses within 1e-2 relative of its model's switch-off run's (bf16
 # rounding in other places: params16's bf16 expert gradients accumulate
@@ -518,6 +535,33 @@ MESH_STEPS, MESH_GLOO_STEPS, MESH_GLOO_RANKS, MESH_LOSS_RTOL = 3, 2, 2, 1e-4
 SWITCH_STEPS, MOE_SWITCH_STEPS, SWITCH_LOSS_RTOL = 3, 6, 1e-2
 FLASH_BWD_HOST_RTOL = 1e-4
 MESH_WORKER_TIMEOUT = 300
+# phase 15: the transformer families on a (data 2, model 2) mesh, four
+# gloo ranks sharing the card.  a: qwen3-0.6b at full width and depth, 2
+# train steps of phase 9's coded batch (16 rows x 256: 8 a data rank), a
+# prefill of B 4 x S 256, 4 decode steps of B 4 over a 64-slot cache,
+# each rank's blocks against the one-device cells' on the card.  bf16
+# compute: the mesh's partial sums (over heads, FFN columns, vocab) are
+# rounded to bf16 before their reduce, where one device rounds the whole
+# sum once, and 28 layers carry that on: the losses and grad norms within
+# 1e-2 relative, the logits and the cache within 5e-2 of max|ref|, each
+# parameter within 3 x the two steps' summed learning rates (the most
+# AdamW moves an element by step 2, ~2.2 lr a step, so a gradient of
+# the wrong sign or block shows), the first moments within 5e-2 in
+# relative Frobenius norm.  A rank that keeps its own partial sum of
+# the attention's wo (the reduce runs, its result is dropped) must fail
+# the prefill's check.  b: one layer of qwen3-moe-235b-a22b at full
+# width, its 128 experts over model, fp32 compute, a prefill of B 4 x S
+# 256 (512 tokens, two whole groups of 256, a data rank), each rank's
+# logits within 1e-4 of max|ref| (ZOO_MOE_TOL: fp32, sums in other
+# orders) and its peak memory.  c: the ranks' parameter and moment bytes
+# against the one-device cell's, and the collectives gloo ran.  d: the
+# flash kernel at a rank's training route (8 rows x 256, 8 query heads, 4
+# KV heads), its row in the kernels line.
+MESH2D_RANKS, MESH2D_STEPS, MESH2D_SHAPE = 4, 2, (2, 2)
+MESH2D_PREFILL, MESH2D_DECODE = (4, 256), (4, 64, 4)
+MESH2D_LOSS_RTOL, MESH2D_LOGIT_TOL, MESH2D_MU_RTOL = 1e-2, 5e-2, 5e-2
+MESH2D_LR_BOUND = 3.0
+MOE2D_PREFILL, MOE2D_TOL = (4, 256), 1e-4
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -3272,8 +3316,8 @@ def all_reduce_ms(numel: int, reps: int = 3) -> float:
 
 def mesh_rank(job: dict) -> dict:
     """Phase 14 b, one gloo rank of the card: the coded batch's rows of
-    this rank, ``MESH_GLOO_STEPS`` steps, the host-staged all-reduce's
-    ms, and whether every rank holds rank 0's parameters bit for bit."""
+    this rank, ``MESH_GLOO_STEPS`` steps on its FSDP blocks, the
+    host-staged all-reduce's ms, and the parameters it holds."""
     import datetime
     import numpy as np
     import torch.distributed as dist
@@ -3297,7 +3341,7 @@ def mesh_rank(job: dict) -> dict:
                                NEW_TRAIN_UNIQUE)
     opt_cfg = steps.default_opt_cfg()
     params = api.init_params(cfg, generator(job["seed"], "cuda"),
-                             trainable=True)
+                             trainable=True, mesh=mesh)
     opt = adamw.init(opt_cfg, params)
     cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, mesh=mesh,
                                   step_cfg=step_cfg)
@@ -3310,18 +3354,16 @@ def mesh_rank(job: dict) -> dict:
         return m
 
     losses, ms, launches = timed_steps(step, MESH_GLOO_STEPS, flash_attention)
-    numel = sum(p.numel() for p in params.parameters()) + 1
+    held = sum(p.numel() for p in params.parameters())
+    numel = sum(t.numel() for t in api.param_shapes(cfg)["layers"].values())
+    numel += sum(t.numel() for n, t in api.param_shapes(cfg).items()
+                 if n != "layers") + 1
     reduce_ms = all_reduce_ms(numel, reps=1)
-    equal = True
-    for p in params.parameters():
-        theirs = p.detach().clone()
-        dist.broadcast(theirs, src=0)
-        equal = equal and torch.equal(theirs, p.detach())
     dist.barrier()
     dist.destroy_process_group()
     return {"rank": rank, "rows": [cell.rows.start, cell.rows.stop],
             "losses": losses, "ms": ms, "launches": launches,
-            "all_reduce_ms": reduce_ms, "bytes": 4 * numel, "equal": equal}
+            "all_reduce_ms": reduce_ms, "bytes": 4 * numel, "held": held}
 
 
 def switch_run(job: dict) -> dict:
@@ -3438,16 +3480,17 @@ def run_workers(jobs: list, env_opts: list, label: str) -> list:
 
 
 def worker_main(path: str) -> None:
-    """One subprocess of phase 14 (``--worker JOB.json``)."""
+    """One subprocess of phase 14 or 15 (``--worker JOB.json``)."""
     if not torch.cuda.is_available():
-        raise RuntimeError("a phase 14 worker needs the card: "
+        raise RuntimeError("a phase 14 or 15 worker needs the card: "
                            "torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     job = json.loads(Path(path).read_text())
-    result = mesh_rank(job) if job["kind"] == "rank" else switch_run(job)
-    Path(job["out"]).write_text(json.dumps(result))
+    run = {"rank": mesh_rank, "switch": switch_run,
+           "mesh2d": mesh2d_rank}[job["kind"]]
+    Path(job["out"]).write_text(json.dumps(run(job)))
 
 
 def median(xs) -> float:
@@ -3458,7 +3501,6 @@ def median(xs) -> float:
 def mesh_phase(seed: int) -> dict:
     """Phase 14: training on a device mesh, and the switches.  Returns
     the flash launches of a's meshed steps."""
-    import copy
     import numpy as np
     import torch.distributed as dist
     from repro_torch._device import generator
@@ -3491,7 +3533,9 @@ def mesh_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     one = api.init_params(cfg, generator(seed + 14, "cuda"), trainable=True)
-    meshed = copy.deepcopy(one)
+    # the same draw, placed on the mesh (a one-rank mesh holds whole leaves)
+    meshed = api.init_params(cfg, generator(seed + 14, "cuda"),
+                             trainable=True, mesh=mesh)
     one_opt, mesh_opt = adamw.init(opt_cfg, one), adamw.init(opt_cfg, meshed)
     plain = steps.build_train_cell(cfg, shape, opt_cfg, "cuda")
     cell = steps.build_train_cell(cfg, shape, opt_cfg, mesh=mesh,
@@ -3550,9 +3594,10 @@ def mesh_phase(seed: int) -> dict:
               f"flash launches {r['launches']}, all-reduce of "
               f"{r['bytes'] / 1e9:.3f} GB {r['all_reduce_ms']:.1f} ms "
               f"(gloo, host-staged: says nothing of NCCL), parameters "
-              f"bit-equal to rank 0's: {r['equal']}", flush=True)
+              f"held (FSDP blocks over data) {r['held']:,} of "
+              f"{(r['bytes'] // 4) - 1:,}", flush=True)
         assert r["rows"] == [r["rank"] * rows, (r["rank"] + 1) * rows]
-        assert r["equal"], r
+        assert r["held"] < r["bytes"] // 4, r
         assert r["launches"] == [TRAIN_LAUNCHES_PER_STEP] * MESH_GLOO_STEPS
         rel = abs(r["losses"][0] - first_loss) / abs(first_loss)
         print(f"    first loss against a's {first_loss:.6f}: relative "
@@ -3609,6 +3654,331 @@ def mesh_phase(seed: int) -> dict:
     return {"launches": sum(launches)}
 
 
+def max_ratio(out: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
+    """max |out - ref| / scale, in fp32."""
+    return float((out.float() - ref.float()).abs().max()) / scale
+
+
+def mesh2d_rank(job: dict) -> dict:
+    """Phase 15, one gloo rank of a (data 2, model 2) mesh on the card: the
+    qwen3-0.6b cells and the one-layer qwen3-moe prefill on its blocks,
+    each against the one-device results the main process saved."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import P, batch_spec, make_host_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import CodedStepConfig
+    from repro_torch.sharding import local_block
+    rank, world = job["rank"], job["world"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    mesh = make_host_mesh(data=2, device="cuda", backend="gloo")
+    assert mesh.shape == MESH2D_SHAPE, mesh.shape
+    out = {"rank": rank, "coord": list(mesh.coordinate())}
+    cfg = get_config("qwen3-0.6b")
+    specs = api.placement(cfg)
+    ref = torch.load(job["ref"], mmap=True)
+    batch = np.load(job["batch"])
+
+    def block(name, full):
+        return full[local_block(mesh, specs[name], full.shape)].cuda()
+
+    # a: two train steps
+    step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, int(batch["c"]),
+                               NEW_TRAIN_UNIQUE)
+    opt_cfg = steps.default_opt_cfg()
+    params = api.init_params(cfg, generator(job["seed"], "cuda"),
+                             trainable=True, mesh=mesh)
+    opt = adamw.init(opt_cfg, params)
+    out["bytes"] = sum(t.numel() * t.element_size() for t in
+                       list(params.parameters()) + list(opt.mu.values())
+                       + list(opt.nu.values()))
+    out["params"] = sum(p.numel() for p in params.parameters())
+    cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, mesh=mesh,
+                                  step_cfg=step_cfg)
+    x, labs, w = cell.shard(*(torch.from_numpy(batch[k]).cuda()
+                              for k in ("tokens", "labels", "weights")))
+    state = [params, opt]
+
+    def step():
+        state[0], state[1], m = cell.fn(state[0], state[1], x, labs, w)
+        out.setdefault("grad_norms", []).append(float(m["grad_norm"]))
+        return m
+
+    torch.cuda.reset_peak_memory_stats()
+    parallel.calls.clear()
+    out["losses"], out["ms"], out["launches"] = timed_steps(
+        step, MESH2D_STEPS, flash_attention)
+    out["calls"] = {f"{op} ({be})": n for (op, be), n in
+                    parallel.calls.items()}
+    out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rows"] = [cell.rows.start, cell.rows.stop]
+    out["param_err"] = max(max_ratio(p.detach(), block(n, ref["params"][n]),
+                                     1.0)
+                           for n, p in params.named_parameters())
+    out["mu_rel"] = max(
+        float(torch.linalg.vector_norm(opt.mu[n].float()
+                                       - block(n, ref["mu"][n]).float())
+              / torch.linalg.vector_norm(ref["mu"][n].float()).clamp_min(
+                  1e-30)) for n in opt.mu)
+    del state, params, opt, cell, x, labs, w
+    torch.cuda.empty_cache()
+
+    # a: prefill and decode on the initial parameters
+    served = api.init_params(cfg, generator(job["seed"], "cuda"), mesh=mesh)
+    b, s = MESH2D_PREFILL
+    pre = steps.build_prefill_cell(cfg, ShapeConfig("p", "prefill", s, b),
+                                   mesh=mesh)
+    tokens = ref["prefill_tokens"].cuda()
+    vspec = P(batch_spec(mesh, b)[0], None, "model")
+    want = ref["prefill"]
+    scale = float(want.float().abs().max())
+    logits = pre.fn(served, *pre.shard(tokens))
+    out["prefill_shape"] = list(logits.shape)
+    out["prefill_ratio"] = max_ratio(
+        logits, want[local_block(mesh, vspec, want.shape)].cuda(), scale)
+
+    # the planted fault: this rank's attention keeps its own partial sum
+    # of wo (the reduce still runs, so the other ranks do not wait)
+    attn, reduce = transformer._attn_block, parallel.reduce_from_model
+    inside = [False]
+
+    def faulty_attn(*args, **kwargs):
+        inside[0] = True
+        try:
+            return attn(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def faulty_reduce(t, group):
+        summed = reduce(t, group)
+        return t if inside[0] and rank == 0 else summed
+
+    transformer._attn_block = faulty_attn
+    parallel.reduce_from_model = faulty_reduce
+    try:
+        bad = pre.fn(served, *pre.shard(tokens))
+    finally:
+        transformer._attn_block, parallel.reduce_from_model = attn, reduce
+    out["fault_ratio"] = max_ratio(
+        bad, want[local_block(mesh, vspec, want.shape)].cuda(), scale)
+    del logits, bad
+
+    b, cache_len, n_steps = MESH2D_DECODE
+    dec = steps.build_decode_cell(cfg, ShapeConfig("d", "decode", cache_len,
+                                                   b), mesh=mesh)
+    cache = api.init_cache(cfg, b, cache_len, device="cuda", mesh=mesh)
+    dec_tokens = ref["decode_tokens"].cuda()
+    cspec = api.cache_specs(cfg)[0]
+    out["decode_ratios"] = []
+    for t in range(n_steps):
+        lg, cache = dec.fn(served, cache, *dec.shard(dec_tokens[:, t:t + 1]),
+                           torch.tensor(t, dtype=torch.int32))
+        want = ref[f"decode{t}"]
+        lspec = P(cspec[1], None, "model")
+        out["decode_ratios"].append(max_ratio(
+            lg, want[local_block(mesh, lspec, want.shape)].cuda(),
+            float(want.float().abs().max())))
+    want = ref["cache_k"]
+    out["cache_shape"] = list(cache[0].shape)
+    out["cache_ratio"] = max_ratio(
+        cache[0], want[local_block(mesh, cspec, want.shape)].cuda(),
+        float(want.float().abs().max()))
+    del served, cache, pre, dec
+    torch.cuda.empty_cache()
+
+    # b: one layer of qwen3-moe-235b-a22b, experts over model
+    mcfg = get_config(ZOO_MOE).scaled(num_layers=1, compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    moe = api.init_params(mcfg, generator(job["seed"], "cuda"), mesh=mesh)
+    out["moe_experts"] = list(moe.layers.w_gate.shape)
+    b, s = MOE2D_PREFILL
+    pre = steps.build_prefill_cell(mcfg, ShapeConfig("p", "prefill", s, b),
+                                   mesh=mesh)
+    want = ref["moe_prefill"]
+    logits = pre.fn(moe, *pre.shard(ref["moe_tokens"].cuda()))
+    torch.cuda.synchronize()
+    out["moe_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["moe_ratio"] = max_ratio(
+        logits, want[local_block(mesh, P(batch_spec(mesh, b)[0], None,
+                                         "model"), want.shape)].cuda(),
+        float(want.abs().max()))
+    del moe, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def mesh2d_phase(seed: int) -> dict:
+    """Phase 15: the transformer families on a (data 2, model 2) mesh of
+    four gloo ranks sharing the card.  Returns the kernels-line row of
+    the flash kernel at a rank's training route."""
+    import numpy as np
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    phase("15. the transformer families on a (data 2, model 2) mesh")
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    batch = mesh_batch(cfg, seed + 15)
+    build = ROOT / "build"
+    batch_path, ref_path = build / "mesh2d_batch.npz", build / "mesh2d_ref.pt"
+    np.savez(batch_path, **batch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+
+    print("a. the one-device cells on the card:", flush=True)
+    opt_cfg = steps.default_opt_cfg()
+    params = api.init_params(cfg, generator(seed + 15, "cuda"),
+                             trainable=True)
+    opt = adamw.init(opt_cfg, params)
+    one_bytes = sum(t.numel() * t.element_size() for t in
+                    list(params.parameters()) + list(opt.mu.values())
+                    + list(opt.nu.values()))
+    one_params = sum(p.numel() for p in params.parameters())
+    cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, "cuda")
+    x, labs, w = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels", "weights"))
+    losses, norms, lrs = [], [], []
+    for _ in range(MESH2D_STEPS):
+        params, opt, m = cell.fn(params, opt, x, labs, w)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(m["lr"])
+    ref = {"params": {n: p.detach().cpu() for n, p in
+                      params.named_parameters()},
+           "mu": {n: t.cpu() for n, t in opt.mu.items()}}
+    del params, opt, cell, x, labs, w
+    torch.cuda.empty_cache()
+    served = api.init_params(cfg, generator(seed + 15, "cuda"))
+    b, s = MESH2D_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pre = steps.build_prefill_cell(cfg, ShapeConfig("p", "prefill", s, b),
+                                   "cuda")
+    ref.update(prefill_tokens=tokens.cpu(),
+               prefill=pre.fn(served, tokens).cpu())
+    b, cache_len, n_steps = MESH2D_DECODE
+    dec = steps.build_decode_cell(cfg, ShapeConfig("d", "decode", cache_len,
+                                                   b), "cuda")
+    cache = api.init_cache(cfg, b, cache_len, device="cuda")
+    dec_tokens = torch.randint(0, cfg.vocab_size, (b, n_steps),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+    ref["decode_tokens"] = dec_tokens.cpu()
+    for t in range(n_steps):
+        lg, cache = dec.fn(served, cache, dec_tokens[:, t:t + 1],
+                           torch.tensor(t, dtype=torch.int32))
+        ref[f"decode{t}"] = lg.cpu()
+    ref["cache_k"] = cache[0].cpu()
+    del served, cache, pre, dec
+    torch.cuda.empty_cache()
+    mcfg = get_config(ZOO_MOE).scaled(num_layers=1, compute_dtype="float32")
+    moe = api.init_params(mcfg, generator(seed + 15, "cuda"))
+    b, s = MOE2D_PREFILL
+    moe_tokens = torch.randint(0, mcfg.vocab_size, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+    pre = steps.build_prefill_cell(mcfg, ShapeConfig("p", "prefill", s, b),
+                                   "cuda")
+    ref.update(moe_tokens=moe_tokens.cpu(),
+               moe_prefill=pre.fn(moe, moe_tokens).cpu())
+    del moe, pre
+    torch.cuda.empty_cache()
+    torch.save(ref, ref_path)
+    del ref
+    print(f"  qwen3-0.6b one device: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}, grad norms "
+          f"{', '.join(f'{v:.4f}' for v in norms)}; {one_params:,} "
+          f"parameters, parameters and moments {one_bytes / 1e9:.3f} GB",
+          flush=True)
+
+    print(f"b. {MESH2D_RANKS} gloo ranks sharing the card, (data 2, model "
+          f"2):", flush=True)
+    store = build / "mesh2d_store"
+    store.unlink(missing_ok=True)
+    jobs = [{"kind": "mesh2d", "rank": r, "world": MESH2D_RANKS,
+             "store": str(store), "batch": str(batch_path),
+             "ref": str(ref_path), "seed": seed + 15}
+            for r in range(MESH2D_RANKS)]
+    ranks = run_workers(jobs, [""] * MESH2D_RANKS, "mesh2d")
+    ref_path.unlink()
+    lr_bound = MESH2D_LR_BOUND * sum(lrs)
+    for r in ranks:
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                           losses))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(r["grad_norms"],
+                                                           norms))
+        print(f"  rank {r['rank']} at {tuple(r['coord'])}: rows {r['rows']}, "
+              f"{r['params']:,} parameters, parameters and moments "
+              f"{r['bytes'] / 1e9:.3f} GB ({r['bytes'] / one_bytes:.4f} of "
+              f"one device's); losses "
+              f"{', '.join(f'{v:.6f}' for v in r['losses'])} (relative "
+              f"{loss_rel:.2e}, limit {MESH2D_LOSS_RTOL:g}), grad norms "
+              f"relative {norm_rel:.2e}; step ms "
+              f"{', '.join(f'{v:.1f}' for v in r['ms'])} (CUDA events); "
+              f"flash launches {r['launches']}; train peak "
+              f"{r['train_peak_gb']:.2f} GB", flush=True)
+        print(f"    parameters max |mesh - one device| {r['param_err']:.3e} "
+              f"(limit {lr_bound:.3e} = {MESH2D_LR_BOUND:g} x the summed "
+              f"lr); first moments relative {r['mu_rel']:.3e} (limit "
+              f"{MESH2D_MU_RTOL:g}); prefill logits {r['prefill_shape']} "
+              f"{r['prefill_ratio']:.3e} of max|ref|, decode "
+              f"{', '.join(f'{v:.3e}' for v in r['decode_ratios'])}, cache "
+              f"{r['cache_shape']} {r['cache_ratio']:.3e} (limit "
+              f"{MESH2D_LOGIT_TOL:g}); planted wo fault "
+              f"{r['fault_ratio']:.3e}", flush=True)
+        print(f"    qwen3-moe-235b-a22b 1 layer, experts {r['moe_experts']} "
+              f"a rank: fp32 prefill logits {r['moe_ratio']:.3e} of "
+              f"max|ref| (limit {MOE2D_TOL:g}); peak {r['moe_peak_gb']:.2f} "
+              f"GB", flush=True)
+        assert loss_rel <= MESH2D_LOSS_RTOL and norm_rel <= MESH2D_LOSS_RTOL
+        assert r["param_err"] <= lr_bound and r["mu_rel"] <= MESH2D_MU_RTOL
+        assert max([r["prefill_ratio"], r["cache_ratio"]]
+                   + r["decode_ratios"]) <= MESH2D_LOGIT_TOL, r
+        assert r["moe_ratio"] <= MOE2D_TOL, r["moe_ratio"]
+        assert r["launches"] == [TRAIN_LAUNCHES_PER_STEP] * MESH2D_STEPS
+    print(f"c. the collective path: torch.distributed's own "
+          f"all_gather_into_tensor, reduce_scatter_tensor and all_reduce "
+          f"on CUDA tensors over gloo (host-staged; no all-reduce stand-in "
+          f"is needed on torch {torch.__version__}), calls a rank in the "
+          f"train steps: {ranks[0]['calls']}", flush=True)
+    assert all(r["calls"] == ranks[0]["calls"] for r in ranks)
+    assert set(ranks[0]["calls"]) == {"all_gather (gloo)",
+                                      "reduce_scatter (gloo)",
+                                      "all_reduce (gloo)"}
+    fault = ranks[0]["fault_ratio"]
+    print(f"  planted fault on rank 0 (its wo partial sum kept): "
+          f"{fault:.3e} of max|ref| (limit {MESH2D_LOGIT_TOL:g})  "
+          f"{'caught' if fault > MESH2D_LOGIT_TOL else 'MISSED'}", flush=True)
+    assert fault > MESH2D_LOGIT_TOL, "the mesh check misses a skipped reduce"
+
+    print("d. the flash kernel at a rank's training route:", flush=True)
+    B, S = ranks[0]["rows"][1] - ranks[0]["rows"][0], NEW_TRAIN_SEQ
+    h, kv = cfg.num_heads // 2, cfg.num_kv_heads // 2
+    row = flash_lse_compare((B, S, S, h, kv, cfg.resolved_head_dim),
+                            torch.bfloat16, True, gen, reps=10)
+    assert row["ok"], "flash+lse disagrees at the rank's route"
+    row["launches"] = sum(sum(r["launches"]) for r in ranks)
+    row["shape"] = (f"B={B},S={S},H={h},KV={kv},D={cfg.resolved_head_dim},"
+                    f"bf16,causal")
+    print(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return row
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3634,6 +4004,7 @@ def main() -> None:
     zoo_launches = zoo_phase(args.seed)
     new_rows = new_family_phase(args.seed)
     mesh_launches = mesh_phase(args.seed)
+    mesh2d_row = mesh2d_phase(args.seed)
 
     phase("13. kernels")
     kernels = []
@@ -3711,6 +4082,13 @@ def main() -> None:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": f"flash_attention[qwen3-0.6b training forward with lse on "
+                f"a (data 2, model 2) rank {mesh2d_row['shape']}]",
+        "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        **{k: mesh2d_row[k] for k in ("launches", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -26,10 +26,12 @@ header+size check (``is_intact``).  ``save_async`` copies the leaves to
 host memory at once and writes them on a worker thread.
 
 Restore: ``restore`` returns numpy leaves, or with ``device=`` tensors on
-that device, in the structure of the tree given; ``restore_sharded`` puts
-each leaf on its sharding's rank device (a ``launch.mesh`` data-only
-mesh holds whole leaves on every rank, so a job may come back on another
-number of ranks than it left on).
+that device, in the structure of the tree given; ``restore_sharded`` gives
+each rank its block of every leaf by its sharding's spec, on the mesh's
+device, so a job may come back on a mesh of another shape than it left
+on.  ``save`` of a sharded state (``shardings=``, every rank calls it)
+gathers each leaf whole and rank 0 writes it: the files are those of the
+one-device state, byte for byte.
 """
 from __future__ import annotations
 
@@ -156,7 +158,19 @@ def _write(root: str, step: int, host: List[np.ndarray], desc: str,
     return final
 
 
-def save(root: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
+def _shardings(shardings: Any, n: int) -> list:
+    """One ``NamedSharding`` per leaf: ``shardings`` is one for every leaf
+    or a tree of them congruent with the leaves'."""
+    from ..sharding import NamedSharding
+    shards = [shardings] * n if isinstance(shardings, NamedSharding) \
+        else _flatten(shardings)[0]
+    if len(shards) != n:
+        raise ValueError(f"{len(shards)} shardings for {n} leaves")
+    return shards
+
+
+def save(root: str, step: int, tree: Any, extra: Optional[dict] = None,
+         shardings: Any = None) -> Optional[str]:
     """Blocking crash-safe save of ``tree`` (tensors on any device, numpy
     arrays, numbers; see the module doc for the order).
 
@@ -165,10 +179,27 @@ def save(root: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
     directory entry is fsync'd: there is no crash instant at which a
     reader (or ``latest_step`` after restart) can observe a partially
     written step under the final name.
+
+    ``shardings`` (as ``restore_sharded``'s): the tensors are this rank's
+    blocks; every rank of the mesh calls ``save``, each leaf is gathered
+    whole (``parallel.gather_leaf``) and rank 0 writes the one-device
+    files; the others return None once it has.
     """
     leaves, _, desc = _flatten(tree)
-    return _write(root, step, [_host(x, copy=False) for x in leaves], desc,
-                  extra)
+    if shardings is None:
+        return _write(root, step, [_host(x, copy=False) for x in leaves],
+                      desc, extra)
+    import torch.distributed as dist
+    from ..parallel import gather_leaf
+    host = []
+    for x, sh in zip(leaves, _shardings(shardings, len(leaves))):
+        if isinstance(x, torch.Tensor):
+            x = gather_leaf(x.detach(), sh.mesh, sh.spec)
+        host.append(_host(x, copy=True) if dist.get_rank() == 0 else None)
+    path = _write(root, step, host, desc, extra) \
+        if dist.get_rank() == 0 else None
+    dist.barrier()
+    return path
 
 
 def save_async(root: str, step: int, tree: Any,
@@ -254,20 +285,24 @@ def restore(root: str, step: int, tree_like: Any,
 
 
 def restore_sharded(root: str, step: int, tree_like: Any, shardings: Any):
-    """``restore`` onto this rank's device.  ``shardings``: one
-    ``sharding.NamedSharding`` for every leaf, or a tree of them
-    congruent with ``tree_like`` (``launch.mesh.named(mesh, specs)``).
-    Each leaf comes back whole; a mesh whose ``model`` axis is larger
-    than 1 raises (the port places nothing over it yet)."""
-    from ..launch.mesh import check_data_only
-    from ..sharding import NamedSharding
-    shards = [shardings] if isinstance(shardings, NamedSharding) \
-        else _flatten(shardings)[0]
-    for sh in shards:
-        check_data_only(sh.mesh)
-    if len(shards) != 1 and len(shards) != len(_flatten(tree_like)[0]):
-        raise ValueError(f"{len(shards)} shardings for "
-                         f"{len(_flatten(tree_like)[0])} leaves")
+    """``restore`` of this rank's blocks onto its device.  ``shardings``:
+    one ``sharding.NamedSharding`` for every leaf, or a tree of them
+    congruent with ``tree_like`` (``launch.mesh.named(mesh, specs)``);
+    each tensor leaf comes back as its block by the spec (GSPMD's,
+    ``sharding.local_block``), on a mesh of any shape.  Returns (tree,
+    manifest)."""
+    from ..sharding import local_block
+    host, manifest = restore(root, step, tree_like)
+    leaves, rebuild, _ = _flatten(host)
+    shards = _shardings(shardings, len(leaves))
     if len({sh.mesh.device for sh in shards}) != 1:
         raise ValueError("the shardings name more than one device")
-    return restore(root, step, tree_like, device=shards[0].mesh.device)
+    dev = shards[0].mesh.device
+    out = []
+    for a, sh in zip(leaves, shards):
+        if isinstance(a, np.ndarray):
+            block = np.array(a[local_block(sh.mesh, sh.spec, a.shape)])
+            out.append(torch.from_numpy(block).to(dev))
+        else:
+            out.append(a)
+    return rebuild(out), manifest

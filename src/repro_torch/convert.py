@@ -21,13 +21,16 @@ imports ``repro``:
   * lists, tuples and other dictionaries are converted element-wise;
     numbers, strings and None pass through.
 
-``params_to_port(cfg, params, device, trainable)`` takes the reference's
-model parameters (``models.api.init_params``'s pytree, as numpy arrays or
-the reference's arrays) and returns this package's model module holding
-them; ``trainable`` makes every parameter require a gradient.
-``opt_state_to_port(opt_state, device)`` takes the reference's AdamW
-state (``optim.adamw.OptState``: step, mu, nu) and returns the port's:
-the step as an int and the moments by parameter name.
+``params_to_port(cfg, params, device, trainable, mesh)`` takes the
+reference's model parameters (``models.api.init_params``'s pytree, as
+numpy arrays or the reference's arrays) and returns this package's model
+module holding them; ``trainable`` makes every parameter require a
+gradient; on a ``launch.mesh`` mesh the module holds this rank's block
+of each (``models.api.placement``).  ``opt_state_to_port(opt_state,
+device, cfg, mesh)`` takes the reference's AdamW state
+(``optim.adamw.OptState``: step, mu, nu) and returns the port's: the
+step as an int and the moments by parameter name (on a mesh, the rank's
+blocks, which needs ``cfg``).
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ from .core.planner import Plan
 from .core.policy import Policy, RetryPolicy
 from .core.scenario import (DeterministicArrivals, FailureModel,
                             MMPPArrivals, PoissonArrivals, Scenario)
-from .models.api import model_class
+from .models.api import build, placement
 from .optim.adamw import OptState
+from .sharding import local_block
 
 __all__ = ["opt_state_to_port", "params_to_port", "to_port"]
 
@@ -117,17 +121,30 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def _blocks(cfg, leaves: dict, device, mesh) -> dict:
+    """Each array of ``leaves`` (by dotted name) as a tensor on ``device``:
+    on a mesh this rank's block by ``api.placement``."""
+    if mesh is None:
+        return to_port(leaves, device)
+    specs = placement(cfg)
+    return {n: _tensor(np.asarray(a)[local_block(mesh, specs[n],
+                                                 np.shape(a))], device)
+            for n, a in leaves.items()}
+
+
 def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE,
-                   trainable: bool = False):
+                   trainable: bool = False, mesh=None):
     """The model module of ``cfg``'s family holding the reference's
-    parameter pytree ``params`` (``{"layers": {...}, "embed": ...}``).
+    parameter pytree ``params`` (``{"layers": {...}, "embed": ...}``); on
+    ``mesh`` this rank's block of each leaf, on the mesh's device.
 
     Every name of the pytree must be a parameter of the module and every
-    parameter a name of the pytree, with the same shape; anything else
-    raises.  Values keep their dtype.  ``trainable``: the parameters
-    require gradients (the training path).
+    parameter a name of the pytree, with the same shape (the block's);
+    anything else raises.  Values keep their dtype.  ``trainable``: the
+    parameters require gradients (the training path).
     """
-    model = model_class(cfg)(cfg, device=resolve(device), trainable=trainable)
+    device = mesh.device if mesh is not None else resolve(device)
+    model = build(cfg, device, trainable, mesh)
     theirs = _flatten(params)
     ours = dict(model.named_parameters())
     missing = sorted(set(ours) - set(theirs))
@@ -135,7 +152,7 @@ def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE,
     if missing or extra:
         raise ValueError(f"{cfg.name}: parameter names differ: missing from "
                          f"the pytree {missing}, not in the model {extra}")
-    tensors = to_port(theirs, device)
+    tensors = _blocks(cfg, theirs, device, mesh)
     for name, p in ours.items():
         t = tensors[name]
         if tuple(t.shape) != tuple(p.shape):
@@ -146,10 +163,17 @@ def params_to_port(cfg, params: dict, device=DEFAULT_DEVICE,
     return model
 
 
-def opt_state_to_port(opt_state, device=DEFAULT_DEVICE) -> OptState:
+def opt_state_to_port(opt_state, device=DEFAULT_DEVICE, cfg=None,
+                      mesh=None) -> OptState:
     """The reference's ``OptState(step, mu, nu)`` as the port's: ``step``
     an int, ``mu`` and ``nu`` dictionaries by the port's parameter names
-    (``layers.wq``, ``embed``, ...) of tensors on ``device``."""
+    (``layers.wq``, ``embed``, ...) of tensors on ``device``; on ``mesh``
+    (with ``cfg``) this rank's blocks, on the mesh's device."""
+    if mesh is not None:
+        if cfg is None:
+            raise ValueError("a mesh needs the config whose specs place the "
+                             "moments")
+        device = mesh.device
     return OptState(step=int(np.asarray(opt_state.step)),
-                    mu=to_port(_flatten(opt_state.mu), device),
-                    nu=to_port(_flatten(opt_state.nu), device))
+                    mu=_blocks(cfg, _flatten(opt_state.mu), device, mesh),
+                    nu=_blocks(cfg, _flatten(opt_state.nu), device, mesh))

@@ -6,14 +6,16 @@ Axes:
 
 ``data``  -- batch (data parallelism); the paper's n redundancy workers
              are contiguous slices of it.
-``model`` -- tensor parallelism in the reference; the port places nothing
-             over a ``model`` axis larger than 1 yet (ROADMAP Queue 1).
+``model`` -- tensor parallelism: attention heads, FFN columns, experts and
+             vocab (the transformer families; an SSM or hybrid config
+             on a ``model`` axis larger than 1 raises, ROADMAP Queue 1).
 ``pod``   -- pure data parallelism across pods.
 
 One process is one rank is one device.  A ``Mesh`` is PyTorch's
 ``DeviceMesh`` over the process group's ranks, seen as the reference's
 ``jax.sharding.Mesh``: its axis names, its shape, this rank's device and
-its coordinate.  A ``Mesh`` built without a ``DeviceMesh`` is a mesh of
+its coordinate, and a process group for each axis and for the batch
+axes together (``group``).  A ``Mesh`` built without a ``DeviceMesh`` is a mesh of
 names and sizes only (the reference's ``AbstractMesh``): specs resolve
 against it, nothing runs on it.  ``named`` pairs each partition spec
 ``P`` of a tree with a mesh, as the reference's ``NamedSharding``s (both
@@ -39,7 +41,8 @@ import torch
 import torch.distributed as dist
 
 from .._device import DEFAULT_DEVICE, resolve
-from ..sharding import NamedSharding, P  # noqa: F401 (re-exported)
+from ..sharding import (NamedSharding, P, axes_of,  # noqa: F401 (re-exported)
+                        local_block, local_rows, shard_shape)
 
 SINGLE_POD = (16, 16)
 MULTI_POD = (2, 16, 16)
@@ -54,6 +57,13 @@ class Mesh:
     shape: Tuple[int, ...]
     device: torch.device = torch.device("cpu")
     device_mesh: Any = None
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    def __deepcopy__(self, memo):
+        # a mesh names process groups, which are not copied: a copy of a
+        # model placed on it is placed on the same ranks
+        return self
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -69,6 +79,22 @@ class Mesh:
         if self.device_mesh is None:
             return (0,) * len(self.shape)
         return tuple(self.device_mesh.get_coordinate())
+
+    def group(self, *axes: str):
+        """The process group over ``axes`` (this rank's, the others fixed);
+        None where they span one rank, when collectives over them are the
+        identity.  Raises for a mesh of names and sizes only and for axes
+        whose group was not made with the mesh (each axis, the batch axes
+        together, all axes)."""
+        key = tuple(a for a in axes if self.sizes[a] > 1)
+        if not key:
+            return None
+        if self.device_mesh is None:
+            raise ValueError(f"a mesh of names and sizes only has no process "
+                             f"group over {axes}")
+        if key not in self.groups:
+            raise ValueError(f"no process group over {axes} on {self}")
+        return self.groups[key]
 
 
 def _backend(device: torch.device, backend: Optional[str]) -> str:
@@ -103,7 +129,34 @@ def _mesh(dev: torch.device, shape: Tuple[int, ...],
         raise ValueError(f"a mesh of shape {shape} holds {math.prod(shape)} "
                          f"ranks; the process group has {world}")
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
-    return Mesh(names, tuple(shape), dev, dm)
+    mesh = Mesh(names, tuple(shape), dev, dm)
+    ranks = dm.mesh
+    if not torch.equal(ranks.flatten().cpu(), torch.arange(world)):
+        raise ValueError("the mesh's ranks are not in row-major order")
+    big = tuple(a for a in names if mesh.sizes[a] > 1)
+    for a in big:
+        mesh.groups[(a,)] = dm.get_group(a)
+    if len(big) > 1:
+        mesh.groups[big] = dist.group.WORLD
+    batch = tuple(a for a in batch_axes(mesh) if a in big)
+    if len(batch) > 1 and batch not in mesh.groups:
+        mesh.groups[batch] = _new_group(mesh, ranks, batch)
+    return mesh
+
+
+def _new_group(mesh: Mesh, ranks: torch.Tensor, axes: Tuple[str, ...]):
+    """This rank's group over ``axes``: every rank makes every such group
+    (``new_group`` is collective), in the same order."""
+    dims = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(len(mesh.shape)) if i not in dims]
+    rows = ranks.permute(*rest, *dims).reshape(-1, math.prod(
+        mesh.shape[i] for i in dims))
+    mine = None
+    for row in rows.tolist():
+        g = dist.new_group(row)
+        if dist.get_rank() in row:
+            mine = g
+    return mine
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=DEFAULT_DEVICE,
@@ -161,34 +214,16 @@ def named(mesh: Mesh, spec_tree):
     return type(spec_tree)(leaves)
 
 
-def axes_of(elem) -> Tuple[str, ...]:
-    """The axis names of one spec element."""
-    if elem is None:
-        return ()
-    return (elem,) if isinstance(elem, str) else tuple(elem)
-
-
-def local_rows(mesh: Mesh, elem, size: int) -> slice:
-    """This rank's contiguous part of a dimension of ``size`` sharded by
-    the spec element ``elem``: block ``i`` of ``prod(sizes)``, ``i`` the
-    rank's coordinate over ``elem``'s axes, the first major (GSPMD's
-    layout)."""
-    coord = dict(zip(mesh.axis_names, mesh.coordinate()))
-    index, parts = 0, 1
-    for a in axes_of(elem):
-        index = index * mesh.sizes[a] + coord[a]
-        parts *= mesh.sizes[a]
-    if size % parts:
-        raise ValueError(f"{size} rows do not split over {elem!r} "
-                         f"({parts} parts)")
-    n = size // parts
-    return slice(index * n, (index + 1) * n)
-
-
-def check_data_only(mesh: Mesh) -> None:
-    """Raise for a mesh whose ``model`` axis is larger than 1."""
-    if mesh.sizes.get("model", 1) > 1:
+def check_family(mesh: Optional[Mesh], cfg) -> None:
+    """Raise ``NotImplementedError`` for an ``ssm`` or ``hybrid`` config on
+    a mesh whose ``model`` axis is larger than 1: those families hold
+    whole parameters on a data-only mesh."""
+    if mesh is None or cfg.family not in ("ssm", "hybrid"):
+        return
+    m = mesh.sizes.get("model", 1)
+    if m > 1:
         raise NotImplementedError(
-            f"a mesh with model axis {mesh.sizes['model']}: the port places "
-            f"nothing over a model axis larger than 1 yet (ROADMAP Queue 1, "
-            f"placement over model > 1 and FSDP)")
+            f"a {cfg.family} config ({cfg.name}) on a mesh with model axis "
+            f"{m}: the port places the ssm and hybrid families on data-only "
+            f"meshes (ROADMAP Queue 1, the ssm and hybrid families on a "
+            f"two-axis mesh)")

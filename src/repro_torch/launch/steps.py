@@ -21,35 +21,49 @@ internvl2-76b) takes (B, S, d) embeddings in the compute dtype and
 separate int32 labels: its train cell is how it trains at full width.
 
 On a ``launch.mesh`` mesh (``mesh=``; none is the one-device cell) every
-rank holds the whole parameters and optimizer state and its own
-contiguous rows of the batch, ``Cell.rows``: those of ``batch_spec`` for
-the train and prefill cells, those of ``cache_specs``' batch axis for the
-decode cell (none for the SSM families, whose state the reference
-replicates: every rank then runs the whole batch).  ``fn`` takes the
-rank's rows (``Cell.shard`` cuts them from the global inputs).  The train
-step computes sum(nll * w) / B over its rows, runs the backward and puts
-every gradient and the loss through ONE all-reduce of one flat fp32
-buffer over the (pod, data) ranks (NCCL on the card, gloo on the CPU or
-for ranks that share a card), then runs the same AdamW on every rank; on
-one rank that is the one-device step's arithmetic, bit for bit.  Prefill
-and decode need no collective.  A mesh whose ``model`` axis is larger
-than 1 raises (ROADMAP Queue 1), and so does an MoE whose ranks hold
-other than whole token groups of ``models.moe.GROUP_SIZE`` (a rank
-groups its own tokens, the reference the global batch's).
+rank holds GSPMD's block of every parameter, moment, batch input, output
+and cache tensor, for the transformer families on a mesh of any (data,
+model) shape (``models.transformer``: FSDP over ``data``, tensor and
+expert parallelism over ``model``).  ``Cell.rows`` are the rank's
+contiguous rows of the batch: those of ``batch_spec`` for the train and
+prefill cells, those of ``cache_specs``' batch axis for the decode cell
+(none for the SSM families, whose state the reference replicates: every
+rank then runs the whole batch); ``fn`` takes the rank's rows
+(``Cell.shard`` cuts them from the global inputs) and the rank's blocks
+(``Cell.materialize`` draws them).  The prefill and decode logits are the
+rank's vocab columns (the reference's ``P(batch, None, "model")``).  The
+train step computes sum(nll * w) / B over its rows, counting a data
+rank's rows once (model ranks hold the same rows and compute the same
+loss), runs the backward, whose FSDP gathers reduce-scatter the
+``data``-sharded gradients, then reduces the gradients by their spec:
+the loss and every leaf replicated over ``data`` in one all-reduce over
+the batch axes (pod and data), the ``data``-sharded leaves in one over
+``pod``.  AdamW then updates the rank's blocks, clipping to the norm
+over the whole mesh.  A group of one rank moves nothing, so on one rank
+the cell is the one-device step's arithmetic, bit for bit.  The SSM and
+hybrid families keep whole parameters on a data-only mesh and raise on a
+``model`` axis larger than 1 (``launch.mesh.check_family``); an MoE
+raises where a data rank's tokens are other than whole token groups of
+``models.moe.GROUP_SIZE`` (a data rank groups its own tokens, the
+reference the global batch's).
 
 Under the ``params16`` switch (``models.layers.opt_enabled``) the train
-step casts the fp32 masters to the compute dtype once a step and runs
-the model on the cast tensors (``torch.func.functional_call``); the
-gradients come back to fp32 through the cast.
+step casts the fp32 masters (on a mesh the rank's shards, before their
+gathers, which then move the compute dtype) to the compute dtype once a
+step and runs the model on the cast tensors
+(``torch.func.functional_call``); the gradients come back to fp32
+through the cast.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import functools
+import math
+from typing import Any, Callable, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
+from .. import parallel
 from .._device import DEFAULT_DEVICE, generator, resolve
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config
 from ..models import api, frontends
@@ -57,9 +71,11 @@ from ..models.layers import opt_enabled
 from ..models.moe import GROUP_SIZE
 from ..models.params import dtype_of
 from ..optim import adamw
-from ..runtime.coded_step import (CodedStepConfig, make_train_step,
-                                  weighted_loss_fn)
-from .mesh import P, Mesh, batch_spec, check_data_only, local_rows
+from ..runtime.coded_step import (CodedStepConfig, make_grad_step,
+                                  make_train_step, weighted_loss_fn)
+from ..sharding import axes_of, replicas, shard_shape
+from .mesh import (P, Mesh, batch_axes, batch_spec, check_family,
+                   local_rows)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -81,6 +97,9 @@ class Cell:
     opt_cfg: Optional[adamw.AdamWConfig] = None
     mesh: Optional[Mesh] = None
     rows: Optional[slice] = None    # this rank's rows of the batch (None: all)
+    # a train cell's (params, tokens, labels, weights) -> (loss, grads),
+    # the gradients reduced as ``fn`` reduces them before AdamW
+    grad_step: Optional[Callable] = None
 
     def shard(self, *inputs):
         """This rank's rows of batch inputs given whole (their leading
@@ -94,10 +113,12 @@ class Cell:
         a train cell), a fresh optimizer state, token ids (embeddings from
         ``models.frontends`` for an embedding-input family) and labels
         uniform over the vocabulary, unit weights, a zero cache and
-        position 0.  On a mesh every rank draws the same global batch and
-        keeps its ``rows`` (a zero cache of its rows)."""
+        position 0.  On a mesh every rank draws the same global parameters
+        and batch and keeps its blocks and ``rows`` (a zero cache of its
+        block)."""
         cfg, gen = self.cfg, generator(seed, self.device)
-        params = api.init_params(cfg, gen, trainable=self.kind == "train")
+        params = api.init_params(cfg, gen, trainable=self.kind == "train",
+                                 mesh=self.mesh)
 
         def inputs(spec):
             if spec.is_floating_point():
@@ -115,35 +136,58 @@ class Cell:
         if self.kind == "prefill":
             return (params, *self.shard(inputs(self.args[1])))
         _, cache, tok, _ = self.args
-        rows = None if self.rows is None else \
-            self.rows.stop - self.rows.start
-        return (params, _zeros(cache, self.device, rows),
+        specs = api.cache_specs(cfg) if self.mesh is not None and \
+            api.places(cfg) else None
+        return (params, _zeros(cache, self.device, specs, self.mesh),
                 *self.shard(inputs(tok)),
                 torch.zeros((), dtype=torch.int32, device=self.device))
 
 
-def _zeros(tree, device: torch.device, rows: Optional[int] = None):
-    """A zero tensor on ``device`` for each meta tensor of ``tree``
-    (``rows`` rows on the batch axis, axis 1, when given)."""
+def _zeros(tree, device: torch.device, specs=None, mesh=None):
+    """A zero tensor on ``device`` for each meta tensor of ``tree`` (with
+    ``specs``, a congruent tree, the rank's block of each on ``mesh``)."""
     if isinstance(tree, torch.Tensor):
-        shape = list(tree.shape)
-        if rows is not None:
-            shape[1] = rows
+        shape = tree.shape if specs is None else \
+            shard_shape(mesh, specs, tree.shape)
         return torch.zeros(shape, dtype=tree.dtype, device=device)
     if isinstance(tree, dict):
-        return {k: _zeros(v, device, rows) for k, v in tree.items()}
-    return tuple(_zeros(v, device, rows) for v in tree)
+        return {k: _zeros(v, device, None if specs is None else specs[k],
+                          mesh) for k, v in tree.items()}
+    return tuple(_zeros(v, device, None if specs is None else s, mesh)
+                 for v, s in zip(tree, specs or [None] * len(tree)))
 
 
-def _placement(mesh: Optional[Mesh], device) -> torch.device:
+def _placement(cfg: ModelConfig, mesh: Optional[Mesh],
+               device) -> torch.device:
     """The cell's device: the mesh's rank device, else ``device``."""
     if mesh is None:
         return resolve(DEFAULT_DEVICE if device is None else device)
-    check_data_only(mesh)
+    check_family(mesh, cfg)
     if device is not None and resolve(device).type != mesh.device.type:
         raise ValueError(f"device {device} is not the mesh's "
                          f"{mesh.device}")
     return mesh.device
+
+
+def _placed(cfg: ModelConfig, mesh: Optional[Mesh], step: Callable
+            ) -> Callable:
+    """``step(params, ...)`` that first raises where a transformer
+    family's ``params`` are not placed on the cell's mesh (a whole module
+    on a mesh, or blocks without one, would compute silently wrong
+    values)."""
+    if not api.places(cfg):
+        return step
+
+    @functools.wraps(step)
+    def checked(params, *args):
+        if getattr(params, "mesh", None) is not mesh:
+            raise ValueError(
+                f"the parameters are placed on {params.mesh}, the cell on "
+                f"{mesh}: build them on the cell's mesh "
+                f"(Cell.materialize, api.init_params or "
+                f"convert.params_to_port with mesh=)")
+        return step(params, *args)
+    return checked
 
 
 def _batch_rows(mesh: Optional[Mesh], global_batch: int
@@ -155,10 +199,11 @@ def _batch_rows(mesh: Optional[Mesh], global_batch: int
 
 def _check_moe_groups(cfg: ModelConfig, rows: Optional[slice], batch: int,
                       seq: int) -> None:
-    """Raise for an MoE whose ranks hold part of the batch in other than
-    whole token groups: a rank groups its own tokens (``models.moe``)
-    where the reference groups the global batch's, so the capacity and
-    the dropped tokens would differ."""
+    """Raise for an MoE whose data ranks hold part of the batch in other
+    than whole token groups: a data rank groups its own tokens
+    (``models.moe``; its model ranks hold the same ones) where the
+    reference groups the global batch's, so the capacity and the dropped
+    tokens would differ."""
     if not cfg.num_experts or rows is None or \
             rows.stop - rows.start == batch:
         return
@@ -192,29 +237,42 @@ def _params16(loss: Callable, dtype: torch.dtype) -> Callable:
     return cast_loss
 
 
-def all_reduce_flat(lval: torch.Tensor, grads: Dict[str, torch.Tensor]
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, grads) summed over the process group's ranks (a mesh spans
-    them all) in ONE all-reduce of one flat fp32 buffer; each gradient
-    comes back as a view of it, in its dtype."""
-    names = list(grads)
-    flat = torch.cat([grads[n].reshape(-1).float() for n in names]
-                     + [lval.reshape(1).float()])
-    dist.all_reduce(flat)
-    out, off = {}, 0
-    for n in names:
-        g = grads[n]
-        out[n] = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
-        off += g.numel()
-    return flat[off], out
+def _grad_reduce(cfg: ModelConfig, mesh: Mesh) -> Callable:
+    """(loss, grads) -> the same summed over the ranks that computed parts
+    of them, by each leaf's spec (``api.placement``): the loss and the
+    leaves replicated over ``data`` in one flat all-reduce over the batch
+    axes; the ``data``-sharded leaves, whose gather's backward summed
+    them over ``data``, in one over the other batch axes (``pod``).  A
+    leaf's partial sums over ``model`` were summed by the model's own
+    ``copy_to_model``."""
+    specs = api.placement(cfg)
+    axes = batch_axes(mesh)
+
+    def sharded(name):
+        return any("data" in axes_of(e) for e in specs[name])
+
+    def reduce(lval, grads):
+        over_batch = mesh.group(*axes)
+        over_pod = mesh.group(*(a for a in axes if a != "data"))
+        rest = [n for n in grads if not sharded(n)]
+        fsdp = [n for n in grads if sharded(n)]
+        *summed, loss = parallel.flat_all_reduce(
+            [grads[n] for n in rest] + [lval.reshape(1)], over_batch)
+        out = dict(zip(rest, summed))
+        out.update(zip(fsdp, parallel.flat_all_reduce(
+            [grads[n] for n in fsdp], over_pod)))
+        return loss.reshape(()), {n: out[n] for n in grads}
+    return reduce
 
 
 def _train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                share: Optional[float]) -> Callable:
-    """``make_train_step`` with the ``params16`` cast and, on a mesh
-    (``share``: the rank's part of the global mean, its rows over the
-    global batch and over the ranks that hold the same rows), the rank's
-    loss scaled to its share and ``all_reduce_flat`` before AdamW."""
+                mesh: Optional[Mesh], share: Optional[float]
+                ) -> Tuple[Callable, Callable]:
+    """(step, grad_step): ``make_train_step`` with the ``params16`` cast
+    and, on a mesh (``share``: the rank's part of the global mean, its
+    rows over the global batch and over the batch ranks that hold the
+    same rows), the rank's loss scaled to its share, ``_grad_reduce``
+    before AdamW and the norm over the whole mesh."""
     loss = weighted_loss_fn(cfg)
     if share is not None and share != 1.0:
         rows_mean = loss
@@ -223,8 +281,18 @@ def _train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             return rows_mean(*args) * share
     if opt_enabled("params16"):
         loss = _params16(loss, dtype_of(cfg.compute_dtype))
-    return make_train_step(cfg, opt_cfg, loss,
-                           None if share is None else all_reduce_flat)
+    reduce = None if mesh is None else _grad_reduce(cfg, mesh)
+    grad_step = make_grad_step(loss, reduce)
+    if mesh is None or not api.places(cfg):
+        return make_train_step(cfg, opt_cfg, loss, reduce), grad_step
+    counts = {n: replicas(mesh, s) for n, s in api.placement(cfg).items()}
+
+    def step(*args):
+        # the mesh's groups are looked up when the step runs: a cell
+        # builds on a mesh of names and sizes too
+        return make_train_step(cfg, opt_cfg, loss, reduce, counts,
+                               mesh.group(*mesh.axis_names))(*args)
+    return step, grad_step
 
 
 def default_opt_cfg() -> adamw.AdamWConfig:
@@ -251,34 +319,38 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     opt_cfg = opt_cfg or default_opt_cfg()
     pshapes = api.param_shapes(cfg)
     b, s = shape.global_batch, shape.seq_len
-    dev = _placement(mesh, device)
+    dev = _placement(cfg, mesh, device)
     rows = _batch_rows(mesh, b)
     _check_moe_groups(cfg, rows, b, s)
     share = None
     if mesh is not None:
         n = rows.stop - rows.start
-        # ranks holding the same rows each count them once in the sum
-        share = n / b / (mesh.size // (b // n))
+        # batch ranks holding the same rows each count them once in the
+        # sum; model ranks compute the same sum
+        batch_ranks = math.prod(mesh.sizes[a] for a in batch_axes(mesh))
+        share = n / b / (batch_ranks // (b // n))
         if step_cfg is not None and n % step_cfg.per_worker_rows:
             raise ValueError(f"{n} rows a rank split worker blocks of "
                              f"{step_cfg.per_worker_rows} rows")
     args = (pshapes, adamw.state_shapes(opt_cfg, pshapes),
             _token_specs(cfg, b, s), _meta((b, s), torch.int32),
             _meta((b,), torch.float32))
-    return Cell(arch=cfg.name, shape=shape.name, kind="train",
-                fn=_train_step(cfg, opt_cfg, share), args=args, cfg=cfg,
-                device=dev, donate=(0, 1), opt_cfg=opt_cfg, mesh=mesh,
-                rows=rows)
+    fn, grad_step = _train_step(cfg, opt_cfg, mesh, share)
+    fn, grad_step = _placed(cfg, mesh, fn), _placed(cfg, mesh, grad_step)
+    return Cell(arch=cfg.name, shape=shape.name, kind="train", fn=fn,
+                args=args, cfg=cfg, device=dev, donate=(0, 1),
+                opt_cfg=opt_cfg, mesh=mesh, rows=rows, grad_step=grad_step)
 
 
 def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig,
                        device=None, mesh: Optional[Mesh] = None) -> Cell:
+    @functools.partial(_placed, cfg, mesh)
     def prefill_step(params, tokens):
         return api.forward(cfg, params, tokens)
 
     args = (api.param_shapes(cfg),
             _token_specs(cfg, shape.global_batch, shape.seq_len))
-    dev = _placement(mesh, device)
+    dev = _placement(cfg, mesh, device)
     rows = _batch_rows(mesh, shape.global_batch)
     _check_moe_groups(cfg, rows, shape.global_batch, shape.seq_len)
     return Cell(arch=cfg.name, shape=shape.name, kind="prefill",
@@ -290,14 +362,18 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig,
                       device=None, mesh: Optional[Mesh] = None) -> Cell:
     """One serve step: a new token with a KV (or SSM) cache of seq_len.
     On a mesh the batch follows the cache's: ``cache_specs``' batch axis
-    (axis 1 of every cache tensor)."""
+    (axis 1 of every cache tensor), and a rank holds its block of the
+    cache (``Cell.materialize``).  On a mesh with a ``pod`` axis the
+    logits are those rows too, where the reference's are the (pod,
+    data) rows of ``batch_spec``."""
+    @functools.partial(_placed, cfg, mesh)
     def serve_step(params, cache, tokens, pos):
         return api.decode_step(cfg, params, cache, tokens, pos)
 
     b = shape.global_batch
     args = (api.param_shapes(cfg), api.cache_shapes(cfg, b, shape.seq_len),
             _token_specs(cfg, b, 1), _meta((), torch.int32))
-    dev = _placement(mesh, device)
+    dev = _placement(cfg, mesh, device)
     rows = None
     if mesh is not None:
         (elem,) = {spec[1] for spec in _spec_leaves(api.cache_specs(cfg))}

@@ -17,12 +17,22 @@ cache, although ``applicable_shapes`` lists no decode cell for it.
 ``train_forward`` and ``loss_fn`` are the reference's differentiable
 ``forward`` and ``loss_fn``; ``decode_step`` is the body of its
 ``serve_step``.
+
+On a ``launch.mesh`` mesh (``mesh=`` of ``build``, ``init_params`` and
+``init_cache``) a transformer-family module holds this rank's block of
+every leaf and its forward runs the placed computation
+(``models.transformer``); ``placement`` gives each leaf's spec.  An SSM
+or hybrid module holds whole leaves (``placement``: every leaf
+replicated) and raises on a mesh whose ``model`` axis is larger than 1
+(``launch.mesh.check_family``).
 """
 from __future__ import annotations
 
 from .._device import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
-from . import ssm_lm, transformer
+from ..launch.mesh import check_family
+from ..sharding import P
+from . import layers, ssm_lm, transformer
 
 _SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -37,11 +47,47 @@ def model_class(cfg: ModelConfig):
     return mod.TransformerLM if mod is transformer else mod.Mamba2LM
 
 
-def init_params(cfg: ModelConfig, generator, trainable: bool = False):
+def places(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s family places its leaves by ``partition_specs``
+    on a mesh (the transformer families), rather than whole."""
+    return model_module(cfg) is transformer
+
+
+def build(cfg: ModelConfig, device=DEFAULT_DEVICE, trainable: bool = False,
+          mesh=None):
+    """The family's module, parameters uninitialised; on ``mesh`` this
+    rank's blocks (see the module doc)."""
+    check_family(mesh, cfg)
+    if places(cfg):
+        return transformer.TransformerLM(cfg, device, trainable, mesh)
+    return ssm_lm.Mamba2LM(cfg, device, trainable)
+
+
+def init_params(cfg: ModelConfig, generator, trainable: bool = False,
+                mesh=None):
     """The family's module, parameters drawn from ``generator`` (a seeded
     ``torch.Generator``) on its device; ``trainable``: they require
-    gradients."""
-    return model_module(cfg).init_params(cfg, generator, trainable)
+    gradients.  On ``mesh`` the same global values, this rank's blocks."""
+    check_family(mesh, cfg)
+    if places(cfg):
+        return transformer.init_params(cfg, generator, trainable, mesh)
+    return ssm_lm.init_params(cfg, generator, trainable)
+
+
+def placement(cfg: ModelConfig) -> dict:
+    """Each leaf's spec by dotted name (``layers.wq``, ...) as the port
+    places it on a mesh: ``partition_specs``' for the transformer
+    families, replicated (``P()``) for the SSM and hybrid ones."""
+    specs = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                specs[f"{prefix}{k}"] = v if places(cfg) else P()
+    walk(partition_specs(cfg), "")
+    return specs
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -79,9 +125,24 @@ def loss_fn(cfg: ModelConfig, params, tokens, labels):
     return model_module(cfg).loss_fn(cfg, params, tokens, labels)
 
 
+def token_nll(cfg: ModelConfig, params, logits, labels):
+    """Per-token cross-entropy (B, S) in fp32 of ``train_forward``'s
+    logits (on a mesh, of the rank's vocab columns, reduced over
+    ``model``)."""
+    if places(cfg):
+        return transformer.token_nll(cfg, params, logits, labels)
+    return layers.token_nll(logits, labels)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: str = "bfloat16", device=DEFAULT_DEVICE):
-    return model_module(cfg).init_cache(cfg, batch, max_len, dtype, device)
+               dtype: str = "bfloat16", device=DEFAULT_DEVICE, mesh=None):
+    """A zero cache; on ``mesh`` (transformer families) this rank's block
+    of it by ``cache_specs``; an SSM family's state stays whole."""
+    check_family(mesh, cfg)
+    if places(cfg):
+        return transformer.init_cache(cfg, batch, max_len, dtype, device,
+                                      mesh)
+    return ssm_lm.init_cache(cfg, batch, max_len, dtype, device)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,

@@ -13,9 +13,12 @@ The reference's ``REPRO_OPT`` switches are read once, at import
 backward), ``attn_probs16`` (score-sized probabilities in the compute
 dtype), ``params16`` (``launch.steps``' train cell) and ``moe_a2a``
 (``models.moe``, where it changes nothing).  ``resolve_spec`` resolves
-the reference's symbolic activation specs; on a rank's own rows of a
-data-only mesh a constraint moves nothing, so ``constrain`` returns its
-input and ``activation_mesh`` holds no state.
+the reference's symbolic activation specs.  The port's tensors are a
+rank's blocks, placed by the models' own collectives (``parallel``), so
+``constrain`` returns its input and ``activation_mesh`` holds no state.
+``token_nll`` over the rank's vocab columns and ``attention_split_hd``
+over its slice of the cache's head dim are the two computations a model
+placed over ``model`` reduces inside a layer.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import parallel
 from ..kernels.flash_attention import flash_attention, flash_attention_lse
 from ..sharding import P
 
@@ -81,10 +85,9 @@ def resolve_spec(mesh, shape, *elems):
 
 def constrain(x: torch.Tensor, *elems) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` with symbolic axes
-    (``resolve_spec`` gives the spec it would pin).  The port's tensors
-    are a rank's own rows of a data-only mesh (or the whole of a
-    one-device run), which every such spec already describes: the
-    identity."""
+    (``resolve_spec`` gives the spec it would pin).  The port's models
+    move their blocks with explicit collectives where a constraint would
+    make GSPMD move them: the identity."""
     return x
 
 
@@ -365,6 +368,37 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def attention_split_hd(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                       cols: slice, group, q_offset: int,
+                       kv_len: int) -> torch.Tensor:
+    """Causal attention over a cache whose head dim is split over a
+    group (``cache_specs`` where the KV heads do not divide 16): q (B, Sq,
+    H, hd) every head at the full head dim, kc / vc (B, Sk, KV, hd / m)
+    this rank's columns ``cols`` of it.  RoPE came before the cache
+    write, so the head dim is a pure contraction axis: the scores are
+    partial sums over the rank's columns, all-reduced over ``group`` (B
+    x H x Sq x Sk fp32), then softmax; p . v gives every head on the
+    rank's columns, gathered over ``group``.  The cache is never
+    gathered.  -> (B, Sq, H, hd) in q's dtype: the reference's dense
+    pass over the cache (one fp32 pass for a decode row)."""
+    b, sq, h, hd = q.shape
+    sk = kc.shape[1]
+    n_rep = h // kc.shape[2]
+    k = _repeat_kv(kc, n_rep)
+    v = _repeat_kv(vc, n_rep)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", (q.float() * scale)[..., cols],
+                     k.float())
+    parallel.all_reduce(s, group)
+    q_pos = int(q_offset) + torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
+    s = torch.where(_mask(q_pos, kpos, True, kv_len)[None, None], s, neg)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return parallel.gather_model(out, 3, group).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # Activation rematerialisation
 # --------------------------------------------------------------------------
@@ -414,13 +448,54 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(g) * u) @ w_down.to(x.dtype)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token cross-entropy of logits whose vocab is split over a
+    group: this rank holds columns [lo, lo + Vl).  Forward: the row max
+    all-reduced (MAX), the exp-sum (SUM) and the gold logit from the rank
+    that owns the label (SUM); the log-sum-exp spans every column, the
+    padded tail's too, as the reference's.  Backward: the rank's columns
+    of softmax - onehot, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, group):
+        mx = parallel.all_reduce(logits.amax(dim=-1), group,
+                                 torch.distributed.ReduceOp.MAX)
+        sumexp = parallel.all_reduce(
+            torch.exp(logits - mx[..., None]).sum(dim=-1), group)
+        logz = mx + torch.log(sumexp)
+        local = labels.long() - lo
+        own = (local >= 0) & (local < logits.shape[-1])
+        idx = local.clamp(0, logits.shape[-1] - 1)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+        gold = parallel.all_reduce(gold.masked_fill(~own, 0), group)
+        ctx.save_for_backward(logits, logz, idx, own)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, own = ctx.saved_tensors
+        grad = torch.exp(logits - logz[..., None])
+        grad.scatter_add_(-1, idx[..., None], -own[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_lo: int = 0,
+              group=None) -> torch.Tensor:
+    """Per-token cross-entropy (..., S) in fp32, labels integer.  With a
+    ``group`` the logits are this rank's vocab columns from ``vocab_lo``
+    (``_VocabParallelNLL``)."""
+    logits = logits.float()
+    if parallel.size(group) > 1:
+        return _VocabParallelNLL.apply(logits, labels, vocab_lo, group)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy in fp32; labels (B, S) integer."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    nll = token_nll(logits, labels)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -13,11 +13,15 @@ convention).
 The reference's ``constrain`` calls and its ``moe_a2a`` switch say how
 GSPMD moves the expert outputs between the expert and the group axes of
 a mesh (an all-to-all of the capacity rows, under the switch, instead of
-a sum over the expert axis).  A rank of the port's data-only mesh holds
-its own groups and every expert, so there is nothing to move: the port
-has the one path, and ``moe_a2a`` is accepted (``layers.opt_enabled``)
-and changes nothing.  On a mesh a rank groups its own tokens, which are
-the reference's groups only when they hold whole groups of
+a sum over the expert axis).  In the port every model rank holds its
+data rank's tokens and routes them whole (the router is replicated over
+``model``); with ``experts`` it runs its slice of the expert axis of
+``dispatch`` and ``combine`` (expert parallelism), else every expert on
+the FFN columns it holds, and its output is a partial sum that the
+caller reduces over ``model`` (``models.transformer``).  So the port has
+the one path, and ``moe_a2a`` is accepted (``layers.opt_enabled``) and
+changes nothing.  On a mesh a rank groups its data rank's tokens, which
+are the reference's groups only when they are whole groups of
 ``GROUP_SIZE`` (``launch.steps`` refuses other meshes for an MoE).  The
 router, dispatch, expert and combine products are plain matrix products
 outside any kernel, as the reference leaves them to XLA
@@ -25,7 +29,7 @@ outside any kernel, as the reference leaves them to XLA
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,10 +85,13 @@ def route(xg: torch.Tensor, router: torch.Tensor, top_k: int,
 def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
             capacity_factor: float = 1.25,
-            group_size: int = GROUP_SIZE) -> torch.Tensor:
+            group_size: int = GROUP_SIZE,
+            experts: Optional[slice] = None) -> torch.Tensor:
     """Top-k capacity-dispatch MoE with SwiGLU experts: x (B, S, d),
     router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d) -> (B, S, d)
-    in ``x.dtype``."""
+    in ``x.dtype``.  ``experts``: the weights are those experts of the E
+    that the router scores (expert parallelism), and the output is their
+    part of the sum."""
     b, s, d = x.shape
     e = router.shape[1]
     tokens = b * s
@@ -96,6 +103,8 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
 
     xg = x.reshape(ng, g, d)
     dispatch, combine = route(xg, router, top_k, cap)
+    if experts is not None:
+        dispatch, combine = dispatch[:, :, experts], combine[:, :, experts]
     xin = torch.einsum("ngec,ngd->necd", dispatch, xg)
     h_g = torch.einsum("necd,edf->necf", xin, w_gate.to(x.dtype))
     h_u = torch.einsum("necd,edf->necf", xin, w_up.to(x.dtype))

@@ -17,16 +17,23 @@ not of the model or of a stacked expert leaf; the arithmetic is
 elementwise, so the slices give the same values.  ``state_shapes`` is the
 state as ``meta`` tensors (``launch.steps``' train cell); ``state_specs``
 its partition specs, the moments' those of their parameters.
+
+On a mesh the parameters, gradients and moments are a rank's blocks: the
+update is elementwise, so it runs on them as they are, and the global
+norm that clips the gradients sums every leaf's squares over the whole
+mesh, a leaf held by ``replicas[name]`` ranks counted once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, NamedTuple, Tuple, Union
+from typing import (Callable, Dict, Iterable, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..sharding import P
 from ..models.params import dtype_of
 
@@ -114,10 +121,21 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return float(f32(cfg.lr) * warm * cos)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in fp32 (0-d tensor)."""
-    leaves = [x.float() for x in named(tree).values()]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+def global_norm(tree: Params, replicas: Optional[Dict[str, int]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in fp32 (0-d tensor).
+    With a ``group`` of more than one rank (the whole mesh) the tensors
+    are a rank's blocks: each leaf's sum of squares over ``replicas[name]``
+    (the ranks that hold the same block), summed over the group by one
+    all-reduce."""
+    leaves = named(tree)
+    norms = torch._foreach_norm([x.float() for x in leaves.values()])
+    if parallel.size(group) == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    counts = torch.tensor([float(replicas[n]) for n in leaves],
+                          device=norms[0].device)
+    sq = (torch.stack(norms).square() / counts).sum()
+    return parallel.all_reduce(sq, group).sqrt()
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -134,12 +152,15 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
 
 
 def apply_updates(cfg: AdamWConfig, params: Params,
-                  grads: Dict[str, torch.Tensor], state: OptState):
+                  grads: Dict[str, torch.Tensor], state: OptState,
+                  replicas: Optional[Dict[str, int]] = None, group=None):
     """One AdamW step; returns (params, new_state, metrics) with
     ``metrics = {"grad_norm": 0-d tensor, "lr": float}``.  The parameters
-    and the moments are updated in place; ``grads`` is read only."""
+    and the moments are updated in place; ``grads`` is read only.  On a
+    mesh (``replicas``, ``group``: ``global_norm``'s) every tensor is the
+    rank's block."""
     leaves = named(params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, replicas, group)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -80,9 +80,7 @@ def weighted_loss_fn(cfg: ModelConfig) -> Callable:
     """
     def loss(params, tokens, labels, weights):
         logits = api.train_forward(cfg, params, tokens).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-        nll = (logz - gold).mean(dim=-1)           # (B,) per-example
+        nll = api.token_nll(cfg, params, logits, labels).mean(dim=-1)  # (B,)
         return (nll * weights).mean()
     return loss
 
@@ -96,22 +94,35 @@ def _value_and_grad(loss: Callable, params, *args):
     return lval.detach(), dict(zip(leaves, grads))
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    loss: Optional[Callable] = None,
-                    reduce: Optional[Callable] = None) -> Callable:
-    """(params, opt_state, tokens, labels, weights) -> (params, opt, metrics)
-    with ``metrics`` = loss, grad_norm, lr.  ``loss`` replaces
-    ``weighted_loss_fn(cfg)``; ``reduce(loss, grads) -> (loss, grads)``
-    runs between the backward and AdamW (``launch.steps``' cells on a
-    mesh: their all-reduce)."""
-    loss = weighted_loss_fn(cfg) if loss is None else loss
-
-    def step(params, opt_state, tokens, labels, weights):
+def make_grad_step(loss: Callable, reduce: Optional[Callable] = None
+                   ) -> Callable:
+    """(params, tokens, labels, weights) -> (loss, {name: grad}) of
+    ``loss``, then ``reduce(loss, grads) -> (loss, grads)`` when given
+    (``launch.steps``' cells on a mesh: their gradient reduction)."""
+    def grad_step(params, tokens, labels, weights):
         lval, grads = _value_and_grad(loss, params, tokens, labels, weights)
         if reduce is not None:
             lval, grads = reduce(lval, grads)
+        return lval, grads
+    return grad_step
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    loss: Optional[Callable] = None,
+                    reduce: Optional[Callable] = None,
+                    replicas: Optional[dict] = None, group=None) -> Callable:
+    """(params, opt_state, tokens, labels, weights) -> (params, opt, metrics)
+    with ``metrics`` = loss, grad_norm, lr.  ``loss`` replaces
+    ``weighted_loss_fn(cfg)``; ``reduce`` runs between the backward and
+    AdamW (``make_grad_step``); ``replicas`` and ``group``: AdamW's global
+    norm over a mesh's blocks."""
+    grad_step = make_grad_step(
+        weighted_loss_fn(cfg) if loss is None else loss, reduce)
+
+    def step(params, opt_state, tokens, labels, weights):
+        lval, grads = grad_step(params, tokens, labels, weights)
         params, opt_state, metrics = adamw.apply_updates(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, params, grads, opt_state, replicas, group)
         metrics["loss"] = lval
         return params, opt_state, metrics
 

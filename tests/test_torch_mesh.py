@@ -32,6 +32,7 @@ from repro_torch.launch import mesh as pmesh
 from repro_torch.launch import steps
 from repro_torch.models import api, layers
 from repro_torch.optim import adamw
+from repro_torch.sharding import local_block
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
@@ -39,6 +40,8 @@ CPU = "cpu"
 #: the four reduced families of the step (tests/test_torch_steps.py's
 #: ``reduced``)
 FAMILIES = ["qwen3-0.6b", "dbrx-132b", "mamba2-1.3b", "zamba2-1.2b"]
+#: the families that keep whole parameters on a data-only mesh
+SSM_FAMILIES = ["mamba2-1.3b", "zamba2-1.2b"]
 SHAPE = ShapeConfig("train_small", "train", 16, 4)     # S 16, B 4
 #: the MoE at its default capacity factor, where tokens drop: a rank groups
 #: its own tokens, so its rows must hold whole groups of moe.GROUP_SIZE
@@ -191,7 +194,7 @@ if case == "train":
         shape = ShapeConfig(**cell_job["shape"])
         ref = np.load(f"{out}/inputs_{arch}.npz")
         init = {k[5:]: ref[k] for k in ref.files if k.startswith("init/")}
-        model = params_to_port(cfg, init, "cpu", trainable=True)
+        model = params_to_port(cfg, init, "cpu", trainable=True, mesh=mesh)
         cell = steps.build_train_cell(cfg, shape, opt_cfg, mesh=mesh)
         inputs = cell.shard(*(torch.from_numpy(ref[k]) for k in
                               ("tokens", "labels", "weights")))
@@ -206,20 +209,26 @@ if case == "train":
 elif case == "model2":
     mesh = pmesh.make_host_mesh(data=2, device="cpu")
     assert mesh.shape == (2, 2), mesh.shape
-    try:
-        steps.build_train_cell(ModelConfig(**job["cfg"]),
-                               ShapeConfig(**job["shape"]), mesh=mesh)
-        said = "built"
-    except NotImplementedError as e:
-        said = str(e)
+    said = {}
+    for arch, cfg in job["cfgs"].items():
+        try:
+            steps.build_train_cell(ModelConfig(**cfg),
+                                   ShapeConfig(**job["shape"]), mesh=mesh)
+            said[arch] = "built"
+        except NotImplementedError as e:
+            said[arch] = str(e)
     json.dump({"said": said}, open(f"{out}/model2_{rank}.json", "w"))
 elif case == "serve":
     from repro_torch._device import generator
     mesh = pmesh.make_host_mesh(data=world, device="cpu")
     flat = {}
+    from repro_torch import parallel
     for arch, cfg in job["cells"].items():
         cfg = ModelConfig(**cfg)
-        model = api.init_params(cfg, generator(0, "cpu"))
+        model = api.init_params(cfg, generator(0, "cpu"), mesh=mesh)
+        for n, p in model.named_parameters():
+            flat[f"{arch}/param/{n}"] = p.detach().numpy()
+        parallel.calls.clear()
         x = torch.from_numpy(np.load(job["tokens"]))
         pre = steps.build_prefill_cell(cfg, ShapeConfig(**job["prefill"]),
                                        mesh=mesh)
@@ -234,6 +243,8 @@ elif case == "serve":
         rows = dec.rows or slice(0, x.shape[0])
         flat[f"{arch}/rows"] = np.asarray([pre.rows.start, pre.rows.stop,
                                            rows.start, rows.stop])
+        flat[f"{arch}/gathers"] = np.asarray(
+            parallel.calls[("all_gather", "gloo")])
     np.savez(f"{out}/serve_{rank}.npz", **flat)
 elif case == "restore":
     mesh = pmesh.make_host_mesh(data=world, device="cpu")
@@ -243,6 +254,10 @@ elif case == "restore":
         job["ckpt"], 3, like, pmesh.named(mesh, api.partition_specs(cfg)))
     flat = {n: t.numpy() for n, t in adamw.named(tree).items()}
     assert all(t.device == mesh.device for t in adamw.named(tree).values())
+    whole, _ = checkpoint.restore_sharded(
+        job["ckpt"], 3, adamw.named(like),
+        pmesh.named(mesh, api.placement(cfg)))
+    flat.update({f"whole/{n}": t.numpy() for n, t in whole.items()})
     np.savez(f"{out}/restore_{rank}.npz", **flat)
 dist.barrier()
 dist.destroy_process_group()
@@ -483,7 +498,7 @@ def test_named_pairs_each_spec_with_the_mesh():
 def _leafwise(ours: dict, ref, tag: str, skip: dict):
     """Every ``tag/`` leaf within RTOL + ATOL of the reference's, outside
     its near-zero-gradient elements ``skip``."""
-    for key in ref.files:
+    for key in getattr(ref, "files", ref):
         if not key.startswith(f"{tag}/"):
             continue
         ok = ~skip[key[len(tag) + 1:]]
@@ -509,15 +524,43 @@ def _one_device_step(arch: str, ref) -> dict:
     return flat
 
 
+def _blocks_of(arch: str, flat: dict, rank: int) -> dict:
+    """Rank ``rank``'s blocks of the whole leaves ``flat`` on (data 4,
+    model 1): a transformer family's by ``partition_specs`` (FSDP over
+    data), an SSM family's whole (``api.placement``)."""
+    specs = api.placement(reduced(arch))
+    out = {}
+    for key, value in flat.items():
+        tag, _, name = key.partition("/")
+        if tag in ("param", "mu", "nu", "grad"):
+            out[key] = value[_rank_block(specs[name], value.shape, rank)]
+        else:
+            out[key] = value
+    return out
+
+
+def _rank_block(spec, shape, rank: int, ranks: int = RANKS):
+    """The slices of ``rank``'s block on (data ``ranks``, model 1)."""
+    class At:
+        axis_names, sizes, size = ("data", "model"), {"data": ranks,
+                                                      "model": 1}, ranks
+
+        def coordinate(self):
+            return (rank, 0)
+    return local_block(At(), spec, shape)
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
-    """One train step on four gloo ranks (a row each, one flat all-reduce)
-    against the reference's cell jitted on (data 4, model 1): the loss
-    within LOSS_RTOL, the parameters and moments within RTOL + ATOL, every
-    rank's parameters bit-equal to every other rank's, and the same
-    values as the port's one-device cell.  The MoE (dbrx) runs at its
-    default capacity factor, where tokens drop, with a rank's row one
-    whole token group (MOE_SHAPE)."""
+    """One train step on four gloo ranks (a row each) against the
+    reference's cell jitted on (data 4, model 1): the loss within
+    LOSS_RTOL, and each rank's parameters and moments within RTOL + ATOL
+    of the reference's and of the port's one-device cell's.  The
+    transformer families (qwen3, dbrx) hold the reference's blocks (FSDP:
+    their gathers reduce-scatter the gradients); the SSM families hold
+    whole leaves (one flat all-reduce), bit-equal on every rank.  The MoE
+    (dbrx) runs at its default capacity factor, where tokens drop, with a
+    rank's row one whole token group (MOE_SHAPE)."""
     ref = np.load(runs / f"ref_{arch}.npz")
     ranks = [dict(np.load(runs / f"port_{arch}_{r}.npz"))
              for r in range(RANKS)]
@@ -530,21 +573,30 @@ def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
     skipped = sum(int(m.sum()) for m in skip.values())
     assert skipped < 0.01 * sum(m.size for m in skip.values()), skipped
     one = _one_device_step(arch, ref)
-    for r in ranks:
+    whole = not api.places(reduced(arch))
+    for i, r in enumerate(ranks):
         np.testing.assert_allclose(r["loss"], ref["loss"], rtol=LOSS_RTOL)
         np.testing.assert_allclose(r["grad_norm"], ref["grad_norm"],
                                    rtol=LOSS_RTOL)
+        mine = _blocks_of(arch, dict(ref), i)
+        mine_one = _blocks_of(arch, one, i)
+        mine_skip = {n: m[_rank_block(api.placement(reduced(arch))[n],
+                                      m.shape, i)] for n, m in skip.items()}
         for key in r:
             if key.split("/")[0] in ("param", "mu", "nu"):
-                assert np.array_equal(r[key], ranks[0][key]), key
+                assert r[key].shape == mine[key].shape, key
+                if whole:
+                    assert np.array_equal(r[key], ranks[0][key]), key
+        for tag in ("param", "mu", "nu"):
+            _leafwise(r, mine, tag, mine_skip)
+            for key in one:
+                if key.startswith(f"{tag}/"):
+                    ok = ~mine_skip[key[len(tag) + 1:]]
+                    np.testing.assert_allclose(r[key][ok],
+                                               mine_one[key][ok],
+                                               rtol=RTOL, atol=ATOL)
     for tag in ("param", "mu", "nu"):
-        _leafwise(ranks[0], ref, tag, skip)
         _leafwise(one, ref, tag, skip)
-        for key in one:
-            if key.startswith(f"{tag}/"):
-                ok = ~skip[key[len(tag) + 1:]]
-                np.testing.assert_allclose(ranks[0][key][ok], one[key][ok],
-                                           rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(one["loss"], ranks[0]["loss"], rtol=LOSS_RTOL)
 
 
@@ -552,24 +604,42 @@ def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
 # One gloo run per case
 # --------------------------------------------------------------------------
 
-def test_train_cell_on_a_model_axis_raises(tmp_path):
-    """make_host_mesh(data=2) over 4 ranks is (2, 2): the train cell
-    raises, naming the ROADMAP item."""
-    _ranks(tmp_path, 4, {"case": "model2",
-                         "cfg": dataclasses.asdict(reduced("qwen3-0.6b")),
-                         "shape": dataclasses.asdict(SHAPE)})
-    for r in range(4):
-        said = json.loads((tmp_path / f"model2_{r}.json").read_text())["said"]
-        assert "model axis 2" in said and "ROADMAP" in said, said
+@pytest.fixture(scope="module")
+def model2(tmp_path_factory):
+    """Four gloo ranks on make_host_mesh(data=2), which is (2, 2): what
+    building the train cell of each family said."""
+    tmp = tmp_path_factory.mktemp("model2")
+    archs = ["qwen3-0.6b"] + SSM_FAMILIES
+    _ranks(tmp, 4, {"case": "model2",
+                    "cfgs": {a: dataclasses.asdict(reduced(a))
+                             for a in archs},
+                    "shape": dataclasses.asdict(SHAPE)})
+    return [json.loads((tmp / f"model2_{r}.json").read_text())["said"]
+            for r in range(4)]
+
+
+@pytest.mark.parametrize("arch", SSM_FAMILIES)
+def test_train_cell_on_a_model_axis_raises(model2, arch):
+    """On (2, 2) an ssm or hybrid config's train cell raises, naming the
+    ROADMAP item; a transformer family's builds (it places over
+    model)."""
+    for said in model2:
+        assert said["qwen3-0.6b"] == "built"
+        msg = said[arch]
+        assert "model axis 2" in msg and "ROADMAP" in msg and \
+            "ssm and hybrid families on a two-axis mesh" in msg, msg
 
 
 def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
-    """Two gloo ranks: the prefill cell gives each rank its batch_spec rows
-    of the one-device cell's logits, and three decode steps give its
-    rows where ``cache_specs`` shards the batch (qwen3's KV cache) and
-    every row where it does not (zamba2's state, replicated as in the
-    reference); within 1e-5 of each step's max |logit| (fp32, products
-    over fewer rows)."""
+    """Two gloo ranks on (data 2, model 1), each holding its blocks
+    (``Cell.materialize``'s draw: qwen3's leaves FSDP-sharded, which its
+    cells gather over data, zamba2's whole, which need no collective):
+    the blocks are the one-device parameters'; the prefill cell gives
+    each rank its batch_spec rows of the one-device cell's logits, and
+    three decode steps give its rows where ``cache_specs`` shards the
+    batch (qwen3's KV cache) and every row where it does not (zamba2's
+    state, replicated as in the reference); within 1e-5 of each step's
+    max |logit| (fp32, products over fewer rows)."""
     from repro_torch._device import generator
     archs = ["qwen3-0.6b", "zamba2-1.2b"]
     prefill = ShapeConfig("p", "prefill", 16, 4)
@@ -594,8 +664,14 @@ def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
             lg, cache = dec.fn(model, cache, t[:, i:i + 1],
                                torch.tensor(i, dtype=torch.int32))
             want[f"decode{i}"] = lg.numpy()
+        specs = api.placement(cfg)
         for r in range(2):
             got = np.load(tmp_path / f"serve_{r}.npz")
+            for n, p in model.named_parameters():
+                block = _rank_block(specs[n], p.shape, r, ranks=2)
+                assert np.array_equal(got[f"{arch}/param/{n}"],
+                                      p.detach().numpy()[block]), n
+            assert (int(got[f"{arch}/gathers"]) > 0) == api.places(cfg)
             p0, p1, d0, d1 = got[f"{arch}/rows"]
             assert (p0, p1) == (2 * r, 2 * r + 2)
             assert (d0, d1) == ((2 * r, 2 * r + 2) if arch == "qwen3-0.6b"
@@ -608,6 +684,10 @@ def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
 
 
 def test_restore_sharded_gives_each_rank_the_checkpoint(tmp_path):
+    """zamba2's checkpoint restored on two gloo ranks: by the reference's
+    ``partition_specs`` each rank gets its block of every leaf (GSPMD's
+    placement, here over data), by ``api.placement`` (how the port holds
+    an SSM family) every leaf whole; bit for bit the saved values."""
     from repro_torch import checkpoint
     from repro_torch._device import generator
     cfg = reduced("zamba2-1.2b")
@@ -616,12 +696,16 @@ def test_restore_sharded_gives_each_rank_the_checkpoint(tmp_path):
     _ranks(tmp_path, 2, {"case": "restore", "cfg": dataclasses.asdict(cfg),
                          "ckpt": str(tmp_path / "ckpt")})
     want = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    specs = adamw.named(api.partition_specs(cfg))
     for r in range(2):
         got = dict(np.load(tmp_path / f"restore_{r}.npz"))
-        assert sorted(got) == sorted(want)
+        assert sorted(got) == sorted(want) + sorted(f"whole/{n}"
+                                                     for n in want)
         for n in want:
+            block = want[n][_rank_block(specs[n], want[n].shape, r, 2)]
             assert got[n].dtype == want[n].dtype
-            assert np.array_equal(got[n], want[n]), n
+            assert np.array_equal(got[n], block), n
+            assert np.array_equal(got[f"whole/{n}"], want[n]), n
 
 
 # --------------------------------------------------------------------------
@@ -648,13 +732,24 @@ def test_production_mesh_needs_its_rank_count():
         pmesh.make_production_mesh(multi_pod=True)
 
 
-def test_cells_on_a_model_axis_raise_before_placing_anything():
+@pytest.mark.parametrize("arch", SSM_FAMILIES)
+def test_cells_on_a_model_axis_raise_before_placing_anything(arch):
+    """Every builder, ``api.build``, ``api.init_params`` and
+    ``api.init_cache`` of an ssm or hybrid config raise on a mesh of
+    names and sizes with model 2, before anything is placed."""
+    from repro_torch._device import generator
     m = pmesh.Mesh(("data", "model"), (2, 2))
-    cfg = reduced("qwen3-0.6b")
+    cfg = reduced(arch)
     for build in (steps.build_train_cell, steps.build_prefill_cell,
                   steps.build_decode_cell):
         with pytest.raises(NotImplementedError, match="model axis 2"):
             build(cfg, SHAPE, mesh=m)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        api.build(cfg, CPU, mesh=m)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        api.init_params(cfg, generator(0, CPU), mesh=m)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        api.init_cache(cfg, 2, 8, device=CPU, mesh=m)
 
 
 def test_moe_cells_raise_where_a_rank_holds_part_of_a_token_group():
@@ -687,7 +782,7 @@ def test_moe_cells_raise_where_a_rank_holds_part_of_a_token_group():
 # --------------------------------------------------------------------------
 
 CARD_SCRIPT = r"""
-import copy, json, sys
+import json, sys
 import torch
 from repro_torch._device import generator
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -705,7 +800,7 @@ shape = ShapeConfig(**job["shape"])
 mesh = make_host_mesh()
 assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
 one = api.init_params(cfg, generator(3, "cuda"), trainable=True)
-meshed = copy.deepcopy(one)
+meshed = api.init_params(cfg, generator(3, "cuda"), trainable=True, mesh=mesh)
 opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2)
 o1, o2 = adamw.init(opt_cfg, one), adamw.init(opt_cfg, meshed)
 plain = steps.build_train_cell(cfg, shape, opt_cfg, "cuda")
