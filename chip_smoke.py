@@ -243,6 +243,26 @@ Phases, none of whose failures is caught (any fault exits non-zero):
     and moment bytes against the one-device cell's, and the collectives
     gloo ran (``parallel.calls``); d. the flash kernel at a rank's
     training route, a row of the kernels line.
+16. The SSM families on a (data 2, model 2) mesh (run after 15 and before
+    13): four gloo ranks sharing the card, each a worker subprocess
+    holding its blocks (FSDP over data; SSD heads, inner channels,
+    attention heads, FFN columns and vocab over model).  a. mamba2-1.3b
+    (8 of 48 layers) and zamba2-1.2b (13 of 38: two shared-block sites
+    and a trailing mamba layer) at full width: 2 train steps of phase
+    9's coded batch, a prefill (mamba2 B 4 x S 4096, zamba2 B 2 x S 8192,
+    where the window binds), 4 decode steps of B 4, each rank's losses,
+    grad norms, parameter blocks, logits and cache against the one-device
+    cells on the card (phase 15's tolerances), the shapes against the
+    trees', the scans and flash launches counted; two planted faults
+    caught: rank 0's copy_to_model before wB / wC keeping its own partial
+    sum (its dB block), rank 0's gated norm skipping its all-reduce; b.
+    one qwen3-moe-235b-a22b layer, fp32: decode of 2 tokens a data rank
+    and a B 4 x S 64 prefill (half a token group a data rank), the
+    groups formed over both data ranks' tokens; c. qwen3-0.6b's decode on
+    a (pod 2, data 1, model 2) mesh of the same ranks: the logits are each
+    rank's pod rows; d. the collectives a train step, each rank's bytes
+    and peak memory; e. the scan and the windowed flash kernel at a
+    rank's training shapes, two rows of the kernels line.
 """
 from __future__ import annotations
 
@@ -562,6 +582,30 @@ MESH2D_PREFILL, MESH2D_DECODE = (4, 256), (4, 64, 4)
 MESH2D_LOSS_RTOL, MESH2D_LOGIT_TOL, MESH2D_MU_RTOL = 1e-2, 5e-2, 5e-2
 MESH2D_LR_BOUND = 3.0
 MOE2D_PREFILL, MOE2D_TOL = (4, 256), 1e-4
+# phase 16: the SSM families on a (data 2, model 2) mesh, four gloo ranks
+# sharing the card, at full width with depth cut: mamba2-1.3b 8 of 48
+# layers, zamba2-1.2b 13 of 38 (two shared-block sites and one trailing
+# mamba layer, so that the shared parameters' gradients add over sites).
+# Each: 2 train steps of phase 9's coded batch, a prefill (mamba2 B 4 x
+# S 4096; zamba2 B 2 x S 8192, where the window binds) whose logits are
+# kept at every 256th position and the last, 4 decode steps of B 4 over
+# a 64-slot cache (MESH2D_DECODE), each rank's blocks against the
+# one-device cells at phase 15's tolerances.  Planted faults that must
+# fail: rank 0's copy_to_model before wB / wC keeping its own partial
+# sum (its dB block, relative Frobenius, MESH2D_MU_RTOL), rank 0's gated
+# norm skipping its all-reduce (the prefill logits).  One qwen3-moe
+# layer's fp32 decode (2 tokens a data rank) and prefill of B 4 x S 64
+# (128 tokens a data rank, half a group of 256) within MOE2D_TOL; then
+# qwen3-0.6b's decode on a (pod 2, data 1, model 2) mesh of the same
+# ranks, whose logits are each rank's pod rows.  The kernels at a rank's
+# shapes: the scan at mamba2's training route (8 rows x 256, 32 heads),
+# the windowed flash at zamba2's (16 heads)
+MESH2D_SSM = {"mamba2-1.3b": dict(layers=8, prefill=(4, 4096)),
+              "zamba2-1.2b": dict(layers=13, prefill=(2, 8192))}
+MESH2D_SSM_EVERY = 256
+MOE2D_SHORT_PREFILL = (4, 64)
+MESH2D_SSM_SCAN = (8, 256, 32, 64, 128)
+MESH2D_SSM_FLASH = (8, 256, 256, 16, 16, 64)
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -3480,16 +3524,16 @@ def run_workers(jobs: list, env_opts: list, label: str) -> list:
 
 
 def worker_main(path: str) -> None:
-    """One subprocess of phase 14 or 15 (``--worker JOB.json``)."""
+    """One subprocess of phase 14, 15 or 16 (``--worker JOB.json``)."""
     if not torch.cuda.is_available():
-        raise RuntimeError("a phase 14 or 15 worker needs the card: "
+        raise RuntimeError("a phase 14, 15 or 16 worker needs the card: "
                            "torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     job = json.loads(Path(path).read_text())
     run = {"rank": mesh_rank, "switch": switch_run,
-           "mesh2d": mesh2d_rank}[job["kind"]]
+           "mesh2d": mesh2d_rank, "mesh2d_ssm": mesh2d_ssm_rank}[job["kind"]]
     Path(job["out"]).write_text(json.dumps(run(job)))
 
 
@@ -3979,6 +4023,519 @@ def mesh2d_phase(seed: int) -> dict:
     return row
 
 
+def mesh2d_ssm_rank(job: dict) -> dict:
+    """Phase 16, one gloo rank of a (data 2, model 2) mesh on the card:
+    the mamba2-1.3b and zamba2-1.2b cells on its blocks, the two planted
+    faults, the one-layer qwen3-moe decode and short prefill, then the
+    qwen3-0.6b decode on a (pod 2, data 1, model 2) mesh of the same
+    ranks, each against the one-device results the main process saved."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import api, layers, mamba2, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import CodedStepConfig
+    from repro_torch.sharding import local_block, shard_shape
+    rank, world = job["rank"], job["world"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    mesh = pmesh.make_host_mesh(data=2, device="cuda", backend="gloo")
+    assert mesh.shape == MESH2D_SHAPE, mesh.shape
+    out = {"rank": rank, "coord": list(mesh.coordinate())}
+    opt_cfg = steps.default_opt_cfg()
+
+    def block(full, spec, on=mesh):
+        return full[local_block(on, spec, full.shape)].cuda()
+
+    def logits_spec(on, b):
+        return pmesh.P(pmesh.batch_spec(on, b)[0], None, "model")
+
+    def decode_run(cfg, model, ref, on=mesh):
+        """MESH2D_DECODE's steps on ``on``: each step's logits ratio, the
+        cache's worst ratio, and the logits and cache shapes' check."""
+        b, cache_len, n_steps = MESH2D_DECODE
+        dec = steps.build_decode_cell(cfg, ShapeConfig("d", "decode",
+                                                       cache_len, b), mesh=on)
+        cache = api.init_cache(cfg, b, cache_len, device="cuda", mesh=on)
+        tokens = ref["decode_tokens"].cuda()
+        ratios, shapes_ok = [], True
+        for t in range(n_steps):
+            lg, cache = dec.fn(model, cache, *dec.shard(tokens[:, t:t + 1]),
+                               torch.tensor(t, dtype=torch.int32))
+            want = ref[f"decode{t}"]
+            spec = logits_spec(on, b)
+            shapes_ok &= tuple(lg.shape) == shard_shape(on, spec, want.shape)
+            ratios.append(max_ratio(lg, block(want, spec, on),
+                                    float(want.float().abs().max())))
+        cache_ratio = 0.0
+        for name, (spec, got) in flat_cache(api.cache_specs(cfg),
+                                            cache).items():
+            want = ref[f"cache/{name}"]
+            shapes_ok &= tuple(got.shape) == shard_shape(on, spec, want.shape)
+            cache_ratio = max(cache_ratio, max_ratio(
+                got, block(want, spec, on),
+                float(want.float().abs().max()) or 1.0))
+        return ratios, cache_ratio, shapes_ok
+
+    class KeepOwn(torch.autograd.Function):
+        """``copy_to_model`` whose backward runs its all-reduce (the other
+        ranks wait for it) and, on rank 0, keeps its own partial sum."""
+
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            summed = parallel.all_reduce(g.clone(), ctx.group)
+            return (g if rank == 0 else summed), None
+
+    for arch, cut in MESH2D_SSM.items():
+        ref = torch.load(job["refs"][arch], mmap=True)
+        batch = np.load(job["batches"][arch])
+        cfg = get_config(arch).scaled(num_layers=cut["layers"])
+        specs = api.placement(cfg)
+        whole = {n: tuple(t.shape) for n, t in
+                 adamw.named(api.param_shapes(cfg)).items()}
+        res = {}
+        step_cfg = CodedStepConfig(NEW_TRAIN_WORKERS, int(batch["c"]),
+                                   NEW_TRAIN_UNIQUE)
+        params = api.init_params(cfg, generator(job["seed"], "cuda"),
+                                 trainable=True, mesh=mesh)
+        res["shapes_ok"] = all(
+            tuple(p.shape) == shard_shape(mesh, specs[n], whole[n])
+            for n, p in params.named_parameters())
+        opt = adamw.init(opt_cfg, params)
+        res["bytes"] = sum(t.numel() * t.element_size() for t in
+                           list(params.parameters()) + list(opt.mu.values())
+                           + list(opt.nu.values()))
+        res["params"] = sum(p.numel() for p in params.parameters())
+        cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, mesh=mesh,
+                                      step_cfg=step_cfg)
+        x, labs, w = cell.shard(*(torch.from_numpy(batch[k]).cuda()
+                                  for k in ("tokens", "labels", "weights")))
+        res["rows"] = [cell.rows.start, cell.rows.stop]
+        if "grad_wB" in ref:
+            # dB against the one-device gradient, then with rank 0's
+            # copy_to_model before wB / wC keeping its own partial sum
+            want = block(ref["grad_wB"], specs["layers.wB"])
+            scale = float(torch.linalg.vector_norm(want.float()))
+
+            def wB_rel():
+                g = cell.grad_step(params, x, labs, w)[1]["layers.wB"]
+                return float(torch.linalg.vector_norm(g.float()
+                                                      - want.float())) / scale
+            res["dB_rel"] = wB_rel()
+            placed = transformer._placed
+
+            def faulty_placed(lay, lp):
+                if isinstance(lay, mamba2.Layout):
+                    lp = dict(lp, **{n: KeepOwn.apply(lp[n], lay.model)
+                                     for n in ("wB", "wC")})
+                    lay = dataclasses.replace(
+                        lay, partial=lay.partial - {"wB", "wC"})
+                return placed(lay, lp)
+            transformer._placed = faulty_placed
+            try:
+                res["dB_fault_rel"] = wB_rel()
+            finally:
+                transformer._placed = placed
+        state = [params, opt]
+
+        def step():
+            state[0], state[1], m = cell.fn(state[0], state[1], x, labs, w)
+            res.setdefault("grad_norms", []).append(float(m["grad_norm"]))
+            return m
+
+        torch.cuda.reset_peak_memory_stats()
+        parallel.calls.clear()
+        flash_attention.launches = 0
+        res["losses"], res["ms"], res["scans"] = timed_steps(
+            step, MESH2D_STEPS, ssd_scan)
+        res["flash"] = flash_attention.launches
+        res["calls"] = {f"{op} ({be})": n for (op, be), n in
+                        parallel.calls.items()}
+        res["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["param_err"] = max(
+            max_ratio(p.detach(), block(ref["params"][n], specs[n]), 1.0)
+            for n, p in state[0].named_parameters())
+        del state, params, opt, cell, x, labs, w
+        torch.cuda.empty_cache()
+
+        served = api.init_params(cfg, generator(job["seed"], "cuda"),
+                                 mesh=mesh)
+        b, s = cut["prefill"]
+        pre = steps.build_prefill_cell(cfg, ShapeConfig("p", "prefill", s, b),
+                                       mesh=mesh)
+        tokens = pre.shard(ref["prefill_tokens"].cuda())[0]
+        spec = logits_spec(mesh, b)
+        want = block(ref["prefill"], spec)
+        scale = float(ref["prefill"].float().abs().max())
+        at = prefill_positions(s)
+        torch.cuda.reset_peak_memory_stats()
+        ssd_scan.launches = flash_attention.launches = 0
+        logits = pre.fn(served, tokens)
+        torch.cuda.synchronize()
+        res["prefill_launches"] = [ssd_scan.launches, flash_attention.launches]
+        res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["shapes_ok"] &= tuple(logits.shape) == shard_shape(
+            mesh, spec, (b, s, api.padded_vocab(cfg)))
+        res["prefill_ratio"] = max_ratio(logits[:, at], want, scale)
+        del logits
+        if arch == "mamba2-1.3b":
+            # rank 0's gated norm runs its all-reduce and keeps its own sum
+            # of squares over its half of d_in (over the whole width)
+            norm, reduce = layers.rms_norm, parallel.reduce_from_model
+            inside = [False]
+
+            def faulty_norm(*args, **kwargs):
+                inside[0] = True
+                try:
+                    return norm(*args, **kwargs)
+                finally:
+                    inside[0] = False
+
+            def faulty_reduce(t, group):
+                summed = reduce(t, group)
+                return t if inside[0] and rank == 0 else summed
+
+            layers.rms_norm, parallel.reduce_from_model = faulty_norm, \
+                faulty_reduce
+            try:
+                bad = pre.fn(served, tokens)
+            finally:
+                layers.rms_norm, parallel.reduce_from_model = norm, reduce
+            res["norm_fault_ratio"] = max_ratio(bad[:, at], want, scale)
+            del bad
+        del want
+        res["decode_ratios"], res["cache_ratio"], ok = decode_run(
+            cfg, served, ref)
+        res["shapes_ok"] &= ok
+        out[arch] = res
+        del served, pre, ref
+        torch.cuda.empty_cache()
+
+    ref = torch.load(job["refs"]["rest"], mmap=True)
+    # one layer of qwen3-moe-235b-a22b, experts over model: decode of 2
+    # tokens a data rank and a prefill of half a token group a data rank
+    mcfg = get_config(ZOO_MOE).scaled(num_layers=1, compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    moe = api.init_params(mcfg, generator(job["seed"], "cuda"), mesh=mesh)
+    b, s = MOE2D_SHORT_PREFILL
+    pre = steps.build_prefill_cell(mcfg, ShapeConfig("p", "prefill", s, b),
+                                   mesh=mesh)
+    want = ref["moe_prefill"]
+    logits = pre.fn(moe, *pre.shard(ref["moe_tokens"].cuda()))
+    out["moe_ratio"] = max_ratio(logits, block(want, logits_spec(mesh, b)),
+                                 float(want.abs().max()))
+    del logits
+    out["moe_decode_ratios"], _, ok = decode_run(
+        mcfg, moe, {k[len("moe_"):]: v for k, v in ref.items()
+                    if k.startswith("moe_")})
+    torch.cuda.synchronize()
+    out["moe_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["moe_shapes_ok"] = ok
+    del moe, pre
+    torch.cuda.empty_cache()
+
+    # the decode rows on (pod 2, data 1, model 2): qwen3-0.6b's cache
+    # holds every row, its tokens and logits are the rank's pod rows
+    pod = pmesh._mesh(torch.device("cuda", 0), (2, 1, 2),
+                      ("pod", "data", "model"))
+    cfg = get_config("qwen3-0.6b")
+    served = api.init_params(cfg, generator(job["seed"], "cuda"), mesh=pod)
+    out["pod_coord"] = list(pod.coordinate())
+    b = MESH2D_DECODE[0]
+    rows = pmesh.local_rows(pod, pmesh.batch_spec(pod, b)[0], b)
+    out["pod_rows"] = [rows.start, rows.stop]
+    out["pod_decode_ratios"], out["pod_cache_ratio"], out["pod_shapes_ok"] = \
+        decode_run(cfg, served, {k[len("qwen3_"):]: v for k, v in ref.items()
+                                 if k.startswith("qwen3_")}, pod)
+    del served, ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def flat_cache(specs, cache, prefix: str = "") -> dict:
+    """name -> (spec, tensor) of a cache tree and its congruent spec tree
+    (a transformer's pair, an SSM family's dictionaries)."""
+    if isinstance(cache, torch.Tensor):
+        return {prefix: (specs, cache)}
+    keys = cache.keys() if isinstance(cache, dict) else range(len(cache))
+    out = {}
+    for k in keys:
+        out.update(flat_cache(specs[k], cache[k],
+                              f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def prefill_positions(s: int) -> torch.Tensor:
+    """The positions whose prefill logits phase 16 keeps: every
+    MESH2D_SSM_EVERY-th and the last (the whole logits of a long
+    prefill do not fit a file the ranks can read quickly)."""
+    at = list(range(0, s, MESH2D_SSM_EVERY))
+    return torch.tensor(at + [s - 1] if at[-1] != s - 1 else at)
+
+
+def mesh2d_ssm_phase(seed: int) -> list:
+    """Phase 16: the SSM families on a (data 2, model 2) mesh of four gloo
+    ranks sharing the card, with the MoE's token groups across data
+    ranks and the decode rows on a pod mesh.  Returns the kernels-line
+    rows of ssd_scan and the windowed flash kernel at a rank's
+    shapes."""
+    import numpy as np
+    from repro_torch._device import generator
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    phase("16. the SSM families on a (data 2, model 2) mesh")
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    paths, batches, one = {}, {}, {}
+
+    def decode_ref(cfg, model, ref, prefix=""):
+        b, cache_len, n_steps = MESH2D_DECODE
+        dec = steps.build_decode_cell(cfg, ShapeConfig("d", "decode",
+                                                       cache_len, b), "cuda")
+        cache = api.init_cache(cfg, b, cache_len, device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (b, n_steps), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        ref[f"{prefix}decode_tokens"] = tokens.cpu()
+        for t in range(n_steps):
+            lg, cache = dec.fn(model, cache, tokens[:, t:t + 1],
+                               torch.tensor(t, dtype=torch.int32))
+            ref[f"{prefix}decode{t}"] = lg.cpu()
+        for name, (_, t) in flat_cache(api.cache_specs(cfg), cache).items():
+            ref[f"{prefix}cache/{name}"] = t.cpu()
+
+    print("a. the one-device cells on the card:", flush=True)
+    opt_cfg = steps.default_opt_cfg()
+    for arch, cut in MESH2D_SSM.items():
+        cfg = get_config(arch).scaled(num_layers=cut["layers"])
+        batch = mesh_batch(cfg, seed + 16)
+        batches[arch] = build / f"mesh2d_ssm_batch_{arch}.npz"
+        np.savez(batches[arch], **batch)
+        params = api.init_params(cfg, generator(seed + 16, "cuda"),
+                                 trainable=True)
+        opt = adamw.init(opt_cfg, params)
+        res = {"bytes": sum(t.numel() * t.element_size() for t in
+                            list(params.parameters()) + list(opt.mu.values())
+                            + list(opt.nu.values())),
+               "params": sum(p.numel() for p in params.parameters()),
+               "losses": [], "norms": [], "lrs": []}
+        cell = steps.build_train_cell(cfg, mesh_shape(), opt_cfg, "cuda")
+        x, labs, w = (torch.from_numpy(batch[k]).cuda()
+                      for k in ("tokens", "labels", "weights"))
+        ref = {}
+        if arch == "mamba2-1.3b":
+            ref["grad_wB"] = cell.grad_step(params, x, labs,
+                                            w)[1]["layers.wB"].cpu()
+        for _ in range(MESH2D_STEPS):
+            params, opt, m = cell.fn(params, opt, x, labs, w)
+            res["losses"].append(float(m["loss"]))
+            res["norms"].append(float(m["grad_norm"]))
+            res["lrs"].append(m["lr"])
+        ref["params"] = {n: p.detach().cpu()
+                         for n, p in params.named_parameters()}
+        del params, opt, cell, x, labs, w
+        torch.cuda.empty_cache()
+        served = api.init_params(cfg, generator(seed + 16, "cuda"))
+        b, s = cut["prefill"]
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        pre = steps.build_prefill_cell(cfg, ShapeConfig("p", "prefill", s, b),
+                                       "cuda")
+        ref["prefill_tokens"] = tokens.cpu()
+        ref["prefill"] = pre.fn(served, tokens)[:, prefill_positions(s)].cpu()
+        decode_ref(cfg, served, ref)
+        del served, pre
+        torch.cuda.empty_cache()
+        paths[arch] = build / f"mesh2d_ssm_ref_{arch}.pt"
+        torch.save(ref, paths[arch])
+        del ref
+        one[arch] = res
+        print(f"  {arch} ({cut['layers']} of {get_config(arch).num_layers} "
+              f"layers) one device: losses "
+              f"{', '.join(f'{v:.6f}' for v in res['losses'])}, grad norms "
+              f"{', '.join(f'{v:.4f}' for v in res['norms'])}; "
+              f"{res['params']:,} parameters, parameters and moments "
+              f"{res['bytes'] / 1e9:.3f} GB", flush=True)
+    ref = {}
+    mcfg = get_config(ZOO_MOE).scaled(num_layers=1, compute_dtype="float32")
+    moe = api.init_params(mcfg, generator(seed + 16, "cuda"))
+    b, s = MOE2D_SHORT_PREFILL
+    tokens = torch.randint(0, mcfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pre = steps.build_prefill_cell(mcfg, ShapeConfig("p", "prefill", s, b),
+                                   "cuda")
+    ref.update(moe_tokens=tokens.cpu(), moe_prefill=pre.fn(moe, tokens).cpu())
+    decode_ref(mcfg, moe, ref, "moe_")
+    del moe, pre
+    torch.cuda.empty_cache()
+    qcfg = get_config("qwen3-0.6b")
+    served = api.init_params(qcfg, generator(seed + 16, "cuda"))
+    decode_ref(qcfg, served, ref, "qwen3_")
+    del served
+    torch.cuda.empty_cache()
+    paths["rest"] = build / "mesh2d_ssm_ref_rest.pt"
+    torch.save(ref, paths["rest"])
+    del ref
+
+    print(f"b. {MESH2D_RANKS} gloo ranks sharing the card, (data 2, model "
+          f"2):", flush=True)
+    store = build / "mesh2d_ssm_store"
+    store.unlink(missing_ok=True)
+    jobs = [{"kind": "mesh2d_ssm", "rank": r, "world": MESH2D_RANKS,
+             "store": str(store), "seed": seed + 16,
+             "refs": {k: str(v) for k, v in paths.items()},
+             "batches": {k: str(v) for k, v in batches.items()}}
+            for r in range(MESH2D_RANKS)]
+    try:
+        ranks = run_workers(jobs, [""] * MESH2D_RANKS, "mesh2d_ssm")
+    finally:
+        for p in list(paths.values()) + list(batches.values()):
+            p.unlink(missing_ok=True)
+    for arch, cut in MESH2D_SSM.items():
+        cfg = get_config(arch).scaled(num_layers=cut["layers"])
+        o = one[arch]
+        lr_bound = MESH2D_LR_BOUND * sum(o["lrs"])
+        per_step = {"ssd_scan": cfg.num_layers * (
+            2 if cfg.remat in ("full", "dots") else 1),
+            "flash_attention": cfg.num_layers // cfg.attn_every
+            if cfg.attn_every else 0}
+        print(f"  {arch} ({cut['layers']} of {get_config(arch).num_layers} "
+              f"layers; one device {o['bytes'] / 1e9:.3f} GB of parameters "
+              f"and moments):", flush=True)
+        for r in ranks:
+            res = r[arch]
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(res["losses"], o["losses"]))
+            norm_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(res["grad_norms"], o["norms"]))
+            print(f"    rank {r['rank']} at {tuple(r['coord'])}: rows "
+                  f"{res['rows']}, {res['params']:,} parameters, parameters "
+                  f"and moments {res['bytes'] / 1e9:.3f} GB "
+                  f"({res['bytes'] / o['bytes']:.4f} of one device's); "
+                  f"losses {', '.join(f'{v:.6f}' for v in res['losses'])} "
+                  f"(relative {loss_rel:.2e}, limit {MESH2D_LOSS_RTOL:g}), "
+                  f"grad norms relative {norm_rel:.2e}; step ms "
+                  f"{', '.join(f'{v:.1f}' for v in res['ms'])} (CUDA "
+                  f"events); scans {res['scans']}, flash {res['flash']} in "
+                  f"the steps; train peak {res['train_peak_gb']:.2f} GB",
+                  flush=True)
+            faults = ""
+            if "dB_rel" in res:
+                faults = (f"; dB relative {res['dB_rel']:.3e} (limit "
+                          f"{MESH2D_MU_RTOL:g}), with rank 0's copy_to_model "
+                          f"before wB / wC kept local {res['dB_fault_rel']:.3e};"
+                          f" rank 0's gated norm without its all-reduce "
+                          f"{res['norm_fault_ratio']:.3e}")
+            print(f"      parameters max |mesh - one device| "
+                  f"{res['param_err']:.3e} (limit {lr_bound:.3e}); prefill "
+                  f"{cut['prefill']} launches (scan, flash) "
+                  f"{res['prefill_launches']}, logits at every "
+                  f"{MESH2D_SSM_EVERY}th position {res['prefill_ratio']:.3e} "
+                  f"of max|ref|, peak {res['prefill_peak_gb']:.2f} GB; decode "
+                  f"{', '.join(f'{v:.3e}' for v in res['decode_ratios'])}, "
+                  f"cache {res['cache_ratio']:.3e} (limit "
+                  f"{MESH2D_LOGIT_TOL:g}); shapes = the trees' "
+                  f"{res['shapes_ok']}{faults}", flush=True)
+            assert loss_rel <= MESH2D_LOSS_RTOL and \
+                norm_rel <= MESH2D_LOSS_RTOL, (arch, res)
+            assert res["param_err"] <= lr_bound, (arch, res["param_err"])
+            assert max([res["prefill_ratio"], res["cache_ratio"]]
+                       + res["decode_ratios"]) <= MESH2D_LOGIT_TOL, res
+            assert res["shapes_ok"], arch
+            assert res["scans"] == [per_step["ssd_scan"]] * MESH2D_STEPS
+            assert res["flash"] == per_step["flash_attention"] * MESH2D_STEPS
+            assert res["prefill_launches"] == [cfg.num_layers,
+                                               per_step["flash_attention"]]
+            if "dB_rel" in res:
+                assert res["dB_rel"] <= MESH2D_MU_RTOL, res["dB_rel"]
+                fault = res["dB_fault_rel"] if r["rank"] == 0 else None
+                if fault is not None:
+                    print(f"  planted fault on rank 0 (dB partial): "
+                          f"{fault:.3e} (limit {MESH2D_MU_RTOL:g})  "
+                          f"{'caught' if fault > MESH2D_MU_RTOL else 'MISSED'}",
+                          flush=True)
+                    assert fault > MESH2D_MU_RTOL, "a partial dB is missed"
+                    nf = res["norm_fault_ratio"]
+                    print(f"  planted fault on rank 0 (the gated norm's "
+                          f"all-reduce skipped): {nf:.3e} of max|ref| (limit "
+                          f"{MESH2D_LOGIT_TOL:g})  "
+                          f"{'caught' if nf > MESH2D_LOGIT_TOL else 'MISSED'}",
+                          flush=True)
+                    assert nf > MESH2D_LOGIT_TOL, "a skipped norm reduce"
+    for r in ranks:
+        print(f"  qwen3-moe-235b-a22b 1 layer on rank {r['rank']}: fp32 "
+              f"prefill {MOE2D_SHORT_PREFILL} (half a token group a data "
+              f"rank) {r['moe_ratio']:.3e}, decode (2 tokens a data rank) "
+              f"{', '.join(f'{v:.3e}' for v in r['moe_decode_ratios'])} of "
+              f"max|ref| (limit {MOE2D_TOL:g}); peak {r['moe_peak_gb']:.2f} "
+              f"GB; qwen3-0.6b decode on (pod 2, data 1, model 2) at "
+              f"{tuple(r['pod_coord'])}: rows {r['pod_rows']}, logits "
+              f"{', '.join(f'{v:.3e}' for v in r['pod_decode_ratios'])}, "
+              f"cache {r['pod_cache_ratio']:.3e} (limit "
+              f"{MESH2D_LOGIT_TOL:g}); shapes = the trees' "
+              f"{r['moe_shapes_ok'] and r['pod_shapes_ok']}", flush=True)
+        assert max([r["moe_ratio"]] + r["moe_decode_ratios"]) <= MOE2D_TOL
+        assert max([r["pod_cache_ratio"]] + r["pod_decode_ratios"]) <= \
+            MESH2D_LOGIT_TOL, r
+        assert r["moe_shapes_ok"] and r["pod_shapes_ok"]
+        assert r["pod_rows"] == [2 * r["pod_coord"][0],
+                                 2 * r["pod_coord"][0] + 2]
+    for arch in MESH2D_SSM:
+        calls = ranks[0][arch]["calls"]
+        print(f"c. {arch}: collectives a rank in the {MESH2D_STEPS} train "
+              f"steps: {calls}", flush=True)
+        assert all(r[arch]["calls"] == calls for r in ranks)
+        assert set(calls) == {"all_gather (gloo)", "reduce_scatter (gloo)",
+                              "all_reduce (gloo)"}
+
+    print("d. the kernels at a rank's shapes:", flush=True)
+    scan = ssd_compare(MESH2D_SSM_SCAN, 256, torch.bfloat16, gen, reps=10,
+                       model_law=True)
+    flash = windowed_flash_compare(MESH2D_SSM_FLASH, torch.bfloat16,
+                                   SSM_WINDOW, gen, reps=10)
+    assert scan["ok"] and flash["ok"], (scan, flash)
+    print(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    B, S, H, P, N = MESH2D_SSM_SCAN
+    fB, fS, _, fH, fKV, fD = MESH2D_SSM_FLASH
+    return [
+        dict(scan, name=f"ssd_scan[mamba2-1.3b training forward on a (data "
+                        f"2, model 2) rank B={B},S={S},H={H},P={P},N={N},"
+                        f"chunk=256,bf16]", source=SSD_SOURCE,
+             replaces=SSD_REPLACES,
+             launches=sum(sum(r["mamba2-1.3b"]["scans"]) for r in ranks)),
+        dict(flash, name=f"flash_attention[zamba2-1.2b training forward "
+                         f"with lse on a (data 2, model 2) rank B={fB},"
+                         f"S={fS},H={fH},KV={fKV},D={fD},bf16,causal,"
+                         f"window={SSM_WINDOW}]",
+             source=FLASH_WINDOW_SOURCE, replaces=FLASH_REPLACES,
+             max_abs_err=flash["lse_err"], ms=flash["lse_ms"],
+             bound_ms=flash["lse_bound_ms"], bound_by=flash["lse_bound_by"],
+             launches=sum(r["zamba2-1.2b"]["flash"] for r in ranks)),
+    ]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4005,6 +4562,7 @@ def main() -> None:
     new_rows = new_family_phase(args.seed)
     mesh_launches = mesh_phase(args.seed)
     mesh2d_row = mesh2d_phase(args.seed)
+    mesh2d_ssm_rows = mesh2d_ssm_phase(args.seed)
 
     phase("13. kernels")
     kernels = []
@@ -4089,6 +4647,12 @@ def main() -> None:
         **{k: mesh2d_row[k] for k in ("launches", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}})
+    for row in mesh2d_ssm_rows:
+        kernels.append({"name": row["name"], "route": "cuda",
+                        **{k: row[k] for k in (
+                            "source", "replaces", "launches", "max_abs_err",
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

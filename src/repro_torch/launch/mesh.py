@@ -6,9 +6,8 @@ Axes:
 
 ``data``  -- batch (data parallelism); the paper's n redundancy workers
              are contiguous slices of it.
-``model`` -- tensor parallelism: attention heads, FFN columns, experts and
-             vocab (the transformer families; an SSM or hybrid config
-             on a ``model`` axis larger than 1 raises, ROADMAP Queue 1).
+``model`` -- tensor parallelism: attention heads, FFN columns, experts,
+             SSM heads and inner channels, and vocab.
 ``pod``   -- pure data parallelism across pods.
 
 One process is one rank is one device.  A ``Mesh`` is PyTorch's
@@ -212,18 +211,3 @@ def named(mesh: Mesh, spec_tree):
     if hasattr(spec_tree, "_fields"):          # a named tuple (OptState)
         return type(spec_tree)(*leaves)
     return type(spec_tree)(leaves)
-
-
-def check_family(mesh: Optional[Mesh], cfg) -> None:
-    """Raise ``NotImplementedError`` for an ``ssm`` or ``hybrid`` config on
-    a mesh whose ``model`` axis is larger than 1: those families hold
-    whole parameters on a data-only mesh."""
-    if mesh is None or cfg.family not in ("ssm", "hybrid"):
-        return
-    m = mesh.sizes.get("model", 1)
-    if m > 1:
-        raise NotImplementedError(
-            f"a {cfg.family} config ({cfg.name}) on a mesh with model axis "
-            f"{m}: the port places the ssm and hybrid families on data-only "
-            f"meshes (ROADMAP Queue 1, the ssm and hybrid families on a "
-            f"two-axis mesh)")

@@ -22,30 +22,34 @@ separate int32 labels: its train cell is how it trains at full width.
 
 On a ``launch.mesh`` mesh (``mesh=``; none is the one-device cell) every
 rank holds GSPMD's block of every parameter, moment, batch input, output
-and cache tensor, for the transformer families on a mesh of any (data,
-model) shape (``models.transformer``: FSDP over ``data``, tensor and
-expert parallelism over ``model``).  ``Cell.rows`` are the rank's
-contiguous rows of the batch: those of ``batch_spec`` for the train and
-prefill cells, those of ``cache_specs``' batch axis for the decode cell
-(none for the SSM families, whose state the reference replicates: every
-rank then runs the whole batch); ``fn`` takes the rank's rows
-(``Cell.shard`` cuts them from the global inputs) and the rank's blocks
-(``Cell.materialize`` draws them).  The prefill and decode logits are the
-rank's vocab columns (the reference's ``P(batch, None, "model")``).  The
-train step computes sum(nll * w) / B over its rows, counting a data
-rank's rows once (model ranks hold the same rows and compute the same
-loss), runs the backward, whose FSDP gathers reduce-scatter the
-``data``-sharded gradients, then reduces the gradients by their spec:
-the loss and every leaf replicated over ``data`` in one all-reduce over
-the batch axes (pod and data), the ``data``-sharded leaves in one over
-``pod``.  AdamW then updates the rank's blocks, clipping to the norm
-over the whole mesh.  A group of one rank moves nothing, so on one rank
-the cell is the one-device step's arithmetic, bit for bit.  The SSM and
-hybrid families keep whole parameters on a data-only mesh and raise on a
-``model`` axis larger than 1 (``launch.mesh.check_family``); an MoE
-raises where a data rank's tokens are other than whole token groups of
-``models.moe.GROUP_SIZE`` (a data rank groups its own tokens, the
-reference the global batch's).
+and cache tensor, for every family on a mesh of any shape
+(``models.transformer``, ``models.ssm_lm``: FSDP over ``data``; heads,
+FFN columns, experts, SSM inner channels and vocab over ``model``).
+``Cell.rows`` are the rank's contiguous rows of the batch inputs and of
+the logits, those of ``batch_spec`` (the reference's), in every cell;
+``fn`` takes the rank's rows (``Cell.shard`` cuts them from the global
+inputs) and the rank's blocks (``Cell.materialize`` draws them).  The
+prefill and decode logits are the rank's vocab columns (the reference's
+``P(batch, None, "model")``).  The decode step runs on the cache's rows,
+those of ``cache_specs``' batch axis (``data`` for the transformer
+families; none for the SSM families, whose state the reference
+replicates, so every rank runs the whole batch): where they are not
+within the rank's token rows it gathers the tokens over the batch axes
+that split them, and where the rank's token rows are not within the
+cache's rows (a transformer on a mesh with ``pod`` and ``data`` both
+larger than 1) it gathers the logits over the cache's axes, then keeps
+its token rows.  The train step computes sum(nll * w) / B over its rows,
+counting a data rank's rows once (model ranks hold the same rows and
+compute the same loss), runs the backward, whose FSDP gathers
+reduce-scatter the ``data``-sharded gradients, then reduces the
+gradients by their spec: the loss and every leaf replicated over
+``data`` in one all-reduce over the batch axes (pod and data), the
+``data``-sharded leaves in one over ``pod``.  AdamW then updates the
+rank's blocks, clipping to the norm over the whole mesh.  A group of one
+rank moves nothing, so on one rank the cell is the one-device step's
+arithmetic, bit for bit.  An MoE forms the reference's token groups over
+the global batch (``models.moe``): the cells name the process group over
+which the rows the model runs on are split.
 
 Under the ``params16`` switch (``models.layers.opt_enabled``) the train
 step casts the fp32 masters (on a mesh the rank's shards, before their
@@ -68,14 +72,12 @@ from .._device import DEFAULT_DEVICE, generator, resolve
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config
 from ..models import api, frontends
 from ..models.layers import opt_enabled
-from ..models.moe import GROUP_SIZE
 from ..models.params import dtype_of
 from ..optim import adamw
 from ..runtime.coded_step import (CodedStepConfig, make_grad_step,
                                   make_train_step, weighted_loss_fn)
 from ..sharding import axes_of, replicas, shard_shape
-from .mesh import (P, Mesh, batch_axes, batch_spec, check_family,
-                   local_rows)
+from .mesh import P, Mesh, batch_axes, batch_spec, local_rows
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -96,7 +98,8 @@ class Cell:
     donate: Tuple[int, ...] = ()    # arguments the step updates in place
     opt_cfg: Optional[adamw.AdamWConfig] = None
     mesh: Optional[Mesh] = None
-    rows: Optional[slice] = None    # this rank's rows of the batch (None: all)
+    # this rank's rows of the batch inputs and logits (None: all)
+    rows: Optional[slice] = None
     # a train cell's (params, tokens, labels, weights) -> (loss, grads),
     # the gradients reduced as ``fn`` reduces them before AdamW
     grad_step: Optional[Callable] = None
@@ -136,8 +139,7 @@ class Cell:
         if self.kind == "prefill":
             return (params, *self.shard(inputs(self.args[1])))
         _, cache, tok, _ = self.args
-        specs = api.cache_specs(cfg) if self.mesh is not None and \
-            api.places(cfg) else None
+        specs = api.cache_specs(cfg) if self.mesh is not None else None
         return (params, _zeros(cache, self.device, specs, self.mesh),
                 *self.shard(inputs(tok)),
                 torch.zeros((), dtype=torch.int32, device=self.device))
@@ -162,22 +164,16 @@ def _placement(cfg: ModelConfig, mesh: Optional[Mesh],
     """The cell's device: the mesh's rank device, else ``device``."""
     if mesh is None:
         return resolve(DEFAULT_DEVICE if device is None else device)
-    check_family(mesh, cfg)
     if device is not None and resolve(device).type != mesh.device.type:
         raise ValueError(f"device {device} is not the mesh's "
                          f"{mesh.device}")
     return mesh.device
 
 
-def _placed(cfg: ModelConfig, mesh: Optional[Mesh], step: Callable
-            ) -> Callable:
-    """``step(params, ...)`` that first raises where a transformer
-    family's ``params`` are not placed on the cell's mesh (a whole module
-    on a mesh, or blocks without one, would compute silently wrong
-    values)."""
-    if not api.places(cfg):
-        return step
-
+def _placed(mesh: Optional[Mesh], step: Callable) -> Callable:
+    """``step(params, ...)`` that first raises where ``params`` are not
+    placed on the cell's mesh (a whole module on a mesh, or blocks
+    without one, would compute silently wrong values)."""
     @functools.wraps(step)
     def checked(params, *args):
         if getattr(params, "mesh", None) is not mesh:
@@ -190,29 +186,34 @@ def _placed(cfg: ModelConfig, mesh: Optional[Mesh], step: Callable
     return checked
 
 
-def _batch_rows(mesh: Optional[Mesh], global_batch: int
-                ) -> Optional[slice]:
+def _batch_rows(mesh: Optional[Mesh], global_batch: int):
+    """(the spec element of the batch's rows, ``batch_spec``'s, and this
+    rank's rows); (None, None) without a mesh."""
     if mesh is None:
-        return None
-    return local_rows(mesh, batch_spec(mesh, global_batch)[0], global_batch)
+        return None, None
+    elem = batch_spec(mesh, global_batch)[0]
+    return elem, local_rows(mesh, elem, global_batch)
 
 
-def _check_moe_groups(cfg: ModelConfig, rows: Optional[slice], batch: int,
-                      seq: int) -> None:
-    """Raise for an MoE whose data ranks hold part of the batch in other
-    than whole token groups: a data rank groups its own tokens
-    (``models.moe``; its model ranks hold the same ones) where the
-    reference groups the global batch's, so the capacity and the dropped
-    tokens would differ."""
-    if not cfg.num_experts or rows is None or \
-            rows.stop - rows.start == batch:
-        return
-    tokens = (rows.stop - rows.start) * seq
-    if tokens % GROUP_SIZE:
-        raise NotImplementedError(
-            f"an MoE with {tokens} tokens a rank: a rank's tokens must be "
-            f"whole groups of {GROUP_SIZE} to be the reference's groups "
-            f"(ROADMAP Queue 1, MoE token groups across ranks)")
+def _split(mesh: Optional[Mesh], elem):
+    """The process group over which rows placed by the spec element
+    ``elem`` are split (None: every rank holds them all); looked up when
+    a step runs, since a cell builds on a mesh of names and sizes too."""
+    return None if mesh is None else mesh.group(*axes_of(elem))
+
+
+def _regroup(x: torch.Tensor, mesh: Mesh, have, want, batch: int
+             ) -> torch.Tensor:
+    """The rows of the spec element ``want`` of a batch of ``batch`` rows
+    (its leading axis), from ``x``, the rows of ``have``: a slice where
+    they lie within those, else from the whole batch, gathered over
+    ``have``'s axes."""
+    held, wanted = local_rows(mesh, have, batch), local_rows(mesh, want,
+                                                             batch)
+    if not (held.start <= wanted.start and wanted.stop <= held.stop):
+        x = parallel.all_gather(x, 0, _split(mesh, have))
+        held = slice(0, batch)
+    return x[wanted.start - held.start:wanted.stop - held.start]
 
 
 class _Bound(torch.nn.Module):
@@ -266,24 +267,23 @@ def _grad_reduce(cfg: ModelConfig, mesh: Mesh) -> Callable:
 
 
 def _train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                mesh: Optional[Mesh], share: Optional[float]
+                mesh: Optional[Mesh], share: Optional[float], elem=None
                 ) -> Tuple[Callable, Callable]:
     """(step, grad_step): ``make_train_step`` with the ``params16`` cast
     and, on a mesh (``share``: the rank's part of the global mean, its
     rows over the global batch and over the batch ranks that hold the
-    same rows), the rank's loss scaled to its share, ``_grad_reduce``
-    before AdamW and the norm over the whole mesh."""
-    loss = weighted_loss_fn(cfg)
-    if share is not None and share != 1.0:
-        rows_mean = loss
-
-        def loss(*args):
-            return rows_mean(*args) * share
+    same rows; ``elem``: the spec element of its rows), the rank's loss
+    scaled to its share, ``_grad_reduce`` before AdamW and the norm over
+    the whole mesh."""
+    def loss(params, tokens, labels, weights):
+        value = weighted_loss_fn(cfg, _split(mesh, elem))(
+            params, tokens, labels, weights)
+        return value if share is None or share == 1.0 else value * share
     if opt_enabled("params16"):
         loss = _params16(loss, dtype_of(cfg.compute_dtype))
     reduce = None if mesh is None else _grad_reduce(cfg, mesh)
     grad_step = make_grad_step(loss, reduce)
-    if mesh is None or not api.places(cfg):
+    if mesh is None:
         return make_train_step(cfg, opt_cfg, loss, reduce), grad_step
     counts = {n: replicas(mesh, s) for n, s in api.placement(cfg).items()}
 
@@ -320,8 +320,7 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     pshapes = api.param_shapes(cfg)
     b, s = shape.global_batch, shape.seq_len
     dev = _placement(cfg, mesh, device)
-    rows = _batch_rows(mesh, b)
-    _check_moe_groups(cfg, rows, b, s)
+    elem, rows = _batch_rows(mesh, b)
     share = None
     if mesh is not None:
         n = rows.stop - rows.start
@@ -335,8 +334,8 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
     args = (pshapes, adamw.state_shapes(opt_cfg, pshapes),
             _token_specs(cfg, b, s), _meta((b, s), torch.int32),
             _meta((b,), torch.float32))
-    fn, grad_step = _train_step(cfg, opt_cfg, mesh, share)
-    fn, grad_step = _placed(cfg, mesh, fn), _placed(cfg, mesh, grad_step)
+    fn, grad_step = _train_step(cfg, opt_cfg, mesh, share, elem)
+    fn, grad_step = _placed(mesh, fn), _placed(mesh, grad_step)
     return Cell(arch=cfg.name, shape=shape.name, kind="train", fn=fn,
                 args=args, cfg=cfg, device=dev, donate=(0, 1),
                 opt_cfg=opt_cfg, mesh=mesh, rows=rows, grad_step=grad_step)
@@ -344,15 +343,15 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig,
 
 def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig,
                        device=None, mesh: Optional[Mesh] = None) -> Cell:
-    @functools.partial(_placed, cfg, mesh)
-    def prefill_step(params, tokens):
-        return api.forward(cfg, params, tokens)
+    b = shape.global_batch
+    elem, rows = _batch_rows(mesh, b)
 
-    args = (api.param_shapes(cfg),
-            _token_specs(cfg, shape.global_batch, shape.seq_len))
+    @functools.partial(_placed, mesh)
+    def prefill_step(params, tokens):
+        return api.forward(cfg, params, tokens, split=_split(mesh, elem))
+
+    args = (api.param_shapes(cfg), _token_specs(cfg, b, shape.seq_len))
     dev = _placement(cfg, mesh, device)
-    rows = _batch_rows(mesh, shape.global_batch)
-    _check_moe_groups(cfg, rows, shape.global_batch, shape.seq_len)
     return Cell(arch=cfg.name, shape=shape.name, kind="prefill",
                 fn=prefill_step, args=args, cfg=cfg, device=dev, mesh=mesh,
                 rows=rows)
@@ -361,24 +360,28 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig,
 def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig,
                       device=None, mesh: Optional[Mesh] = None) -> Cell:
     """One serve step: a new token with a KV (or SSM) cache of seq_len.
-    On a mesh the batch follows the cache's: ``cache_specs``' batch axis
-    (axis 1 of every cache tensor), and a rank holds its block of the
-    cache (``Cell.materialize``).  On a mesh with a ``pod`` axis the
-    logits are those rows too, where the reference's are the (pod,
-    data) rows of ``batch_spec``."""
-    @functools.partial(_placed, cfg, mesh)
-    def serve_step(params, cache, tokens, pos):
-        return api.decode_step(cfg, params, cache, tokens, pos)
-
+    On a mesh the tokens and the logits are the rank's ``batch_spec``
+    rows, the cache its block (``Cell.materialize``), and the step runs on
+    the cache's rows (see the module doc)."""
     b = shape.global_batch
+    tok, rows = _batch_rows(mesh, b)
+    if mesh is not None:
+        (held,) = {spec[1] for spec in _spec_leaves(api.cache_specs(cfg))}
+        local_rows(mesh, held, b)       # raises where the cache's rows
+        #                                 do not split (GSPMD refuses)
+
+    @functools.partial(_placed, mesh)
+    def serve_step(params, cache, tokens, pos):
+        if mesh is None:
+            return api.decode_step(cfg, params, cache, tokens, pos)
+        logits, cache = api.decode_step(
+            cfg, params, cache, _regroup(tokens, mesh, tok, held, b), pos,
+            _split(mesh, held))
+        return _regroup(logits, mesh, held, tok, b), cache
+
     args = (api.param_shapes(cfg), api.cache_shapes(cfg, b, shape.seq_len),
             _token_specs(cfg, b, 1), _meta((), torch.int32))
     dev = _placement(cfg, mesh, device)
-    rows = None
-    if mesh is not None:
-        (elem,) = {spec[1] for spec in _spec_leaves(api.cache_specs(cfg))}
-        rows = local_rows(mesh, elem, b)
-    _check_moe_groups(cfg, rows, b, 1)
     return Cell(arch=cfg.name, shape=shape.name, kind="decode",
                 fn=serve_step, args=args, cfg=cfg, device=dev,
                 donate=(1,), mesh=mesh, rows=rows)

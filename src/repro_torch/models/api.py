@@ -19,20 +19,19 @@ cache, although ``applicable_shapes`` lists no decode cell for it.
 ``serve_step``.
 
 On a ``launch.mesh`` mesh (``mesh=`` of ``build``, ``init_params`` and
-``init_cache``) a transformer-family module holds this rank's block of
-every leaf and its forward runs the placed computation
-(``models.transformer``); ``placement`` gives each leaf's spec.  An SSM
-or hybrid module holds whole leaves (``placement``: every leaf
-replicated) and raises on a mesh whose ``model`` axis is larger than 1
-(``launch.mesh.check_family``).
+``init_cache``) a module of any family holds this rank's block of every
+leaf and its forward runs the placed computation (``models.transformer``,
+``models.ssm_lm``); ``placement`` gives each leaf's spec.  The
+``split`` argument of ``forward``, ``train_forward`` and
+``decode_step`` names the process group over which the tokens' rows are
+the global batch's blocks, which an MoE's token groups need
+(``models.moe``).
 """
 from __future__ import annotations
 
 from .._device import DEFAULT_DEVICE
 from ..configs.base import ModelConfig
-from ..launch.mesh import check_family
-from ..sharding import P
-from . import layers, ssm_lm, transformer
+from . import ssm_lm, transformer
 
 _SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -47,20 +46,11 @@ def model_class(cfg: ModelConfig):
     return mod.TransformerLM if mod is transformer else mod.Mamba2LM
 
 
-def places(cfg: ModelConfig) -> bool:
-    """Whether ``cfg``'s family places its leaves by ``partition_specs``
-    on a mesh (the transformer families), rather than whole."""
-    return model_module(cfg) is transformer
-
-
 def build(cfg: ModelConfig, device=DEFAULT_DEVICE, trainable: bool = False,
           mesh=None):
     """The family's module, parameters uninitialised; on ``mesh`` this
     rank's blocks (see the module doc)."""
-    check_family(mesh, cfg)
-    if places(cfg):
-        return transformer.TransformerLM(cfg, device, trainable, mesh)
-    return ssm_lm.Mamba2LM(cfg, device, trainable)
+    return model_class(cfg)(cfg, device, trainable, mesh)
 
 
 def init_params(cfg: ModelConfig, generator, trainable: bool = False,
@@ -68,16 +58,12 @@ def init_params(cfg: ModelConfig, generator, trainable: bool = False,
     """The family's module, parameters drawn from ``generator`` (a seeded
     ``torch.Generator``) on its device; ``trainable``: they require
     gradients.  On ``mesh`` the same global values, this rank's blocks."""
-    check_family(mesh, cfg)
-    if places(cfg):
-        return transformer.init_params(cfg, generator, trainable, mesh)
-    return ssm_lm.init_params(cfg, generator, trainable)
+    return model_module(cfg).init_params(cfg, generator, trainable, mesh)
 
 
 def placement(cfg: ModelConfig) -> dict:
     """Each leaf's spec by dotted name (``layers.wq``, ...) as the port
-    places it on a mesh: ``partition_specs``' for the transformer
-    families, replicated (``P()``) for the SSM and hybrid ones."""
+    places it on a mesh: ``partition_specs``'."""
     specs = {}
 
     def walk(tree, prefix):
@@ -85,7 +71,7 @@ def placement(cfg: ModelConfig) -> dict:
             if isinstance(v, dict):
                 walk(v, f"{prefix}{k}.")
             else:
-                specs[f"{prefix}{k}"] = v if places(cfg) else P()
+                specs[f"{prefix}{k}"] = v
     walk(partition_specs(cfg), "")
     return specs
 
@@ -109,15 +95,17 @@ def partition_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
     return model_module(cfg).partition_specs(cfg, fsdp, tp)
 
 
-def forward(cfg: ModelConfig, params, tokens, positions=None):
+def forward(cfg: ModelConfig, params, tokens, positions=None, split=None):
     """Logits (B, S, V_pad) of tokens (B, S) (embeddings (B, S, d) for an
     embedding-input family): the prefill path."""
-    return model_module(cfg).forward(cfg, params, tokens, positions)
+    return model_module(cfg).forward(cfg, params, tokens, positions, split)
 
 
-def train_forward(cfg: ModelConfig, params, tokens, positions=None):
+def train_forward(cfg: ModelConfig, params, tokens, positions=None,
+                  split=None):
     """``forward`` with gradients and ``cfg.remat``: the train path."""
-    return model_module(cfg).train_forward(cfg, params, tokens, positions)
+    return model_module(cfg).train_forward(cfg, params, tokens, positions,
+                                           split)
 
 
 def loss_fn(cfg: ModelConfig, params, tokens, labels):
@@ -129,20 +117,15 @@ def token_nll(cfg: ModelConfig, params, logits, labels):
     """Per-token cross-entropy (B, S) in fp32 of ``train_forward``'s
     logits (on a mesh, of the rank's vocab columns, reduced over
     ``model``)."""
-    if places(cfg):
-        return transformer.token_nll(cfg, params, logits, labels)
-    return layers.token_nll(logits, labels)
+    return transformer.token_nll(cfg, params, logits, labels)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", device=DEFAULT_DEVICE, mesh=None):
-    """A zero cache; on ``mesh`` (transformer families) this rank's block
-    of it by ``cache_specs``; an SSM family's state stays whole."""
-    check_family(mesh, cfg)
-    if places(cfg):
-        return transformer.init_cache(cfg, batch, max_len, dtype, device,
-                                      mesh)
-    return ssm_lm.init_cache(cfg, batch, max_len, dtype, device)
+    """A zero cache; on ``mesh`` this rank's block of it by
+    ``cache_specs``."""
+    return model_module(cfg).init_cache(cfg, batch, max_len, dtype, device,
+                                        mesh)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
@@ -157,10 +140,11 @@ def cache_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
     return model_module(cfg).cache_specs(cfg, fsdp, tp)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, split=None):
     """(logits (B, 1, V_pad), cache) for tokens (B, 1) (embeddings
     (B, 1, d)) at ``pos``; the cache is updated in place."""
-    return model_module(cfg).decode_step(cfg, params, cache, tokens, pos)
+    return model_module(cfg).decode_step(cfg, params, cache, tokens, pos,
+                                         split)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:

@@ -16,9 +16,10 @@ dtype), ``params16`` (``launch.steps``' train cell) and ``moe_a2a``
 the reference's symbolic activation specs.  The port's tensors are a
 rank's blocks, placed by the models' own collectives (``parallel``), so
 ``constrain`` returns its input and ``activation_mesh`` holds no state.
-``token_nll`` over the rank's vocab columns and ``attention_split_hd``
-over its slice of the cache's head dim are the two computations a model
-placed over ``model`` reduces inside a layer.
+``token_nll`` over the rank's vocab columns, ``attention_split_hd``
+over its slice of the cache's head dim and ``rms_norm`` over its part of
+the normalised dimension are the computations a model placed over
+``model`` reduces inside a layer.
 """
 from __future__ import annotations
 
@@ -125,16 +126,34 @@ def embed_init(generator: torch.Generator, shape,
 # RMSNorm and rotary position embedding
 # --------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             group=None) -> torch.Tensor:
     """RMSNorm in fp32 end to end, cast to ``x.dtype`` (autograd's
-    backward); under ``norm_vjp`` through ``RMSNormVJP``."""
+    backward); under ``norm_vjp`` through ``RMSNormVJP``.  With a
+    ``group`` of more than one rank, ``x`` and ``scale`` are this rank's
+    equal part of the normalised dimension: the sum of squares is
+    all-reduced over the group (forward and backward) and divided by the
+    whole width."""
     if opt_enabled("norm_vjp"):
-        return RMSNormVJP.apply(x, scale, eps)
+        return RMSNormVJP.apply(x, scale, eps, group)
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if parallel.size(group) == 1:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        # the sum feeds every rank's part: its gradient is summed too
+        ss = parallel.reduce_from_model(
+            (x32 * x32).sum(dim=-1, keepdim=True), group)
+        var = parallel.copy_to_model(ss, group) / (
+            x.shape[-1] * parallel.size(group))
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def _row_mean(t: torch.Tensor, group, width: int) -> torch.Tensor:
+    """The sum of fp32 ``t`` over its last dimension, all-reduced over
+    ``group``, over ``width`` (the whole dimension's)."""
+    s = t.float().sum(dim=-1, keepdim=True)
+    return parallel.all_reduce(s, group) / width
 
 
 class RMSNormVJP(torch.autograd.Function):
@@ -142,14 +161,20 @@ class RMSNormVJP(torch.autograd.Function):
     (the reference's ``_rms_norm_custom``): the backward keeps every
     (..., d)-sized tensor in ``x.dtype`` and only the per-row reductions
     in fp32,  dx = r * (g*w - x_hat * mean(g*w*x_hat)),
-    r = rsqrt(var + eps)."""
+    r = rsqrt(var + eps).  With a ``group`` (``rms_norm``'s) both row
+    means are all-reduced over it."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps: float):
+    def forward(ctx, x, scale, eps: float, group=None):
         x32 = x.float()
-        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        width = x.shape[-1] * parallel.size(group)
+        if parallel.size(group) == 1:
+            var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        else:
+            var = _row_mean(x32 * x32, group, width)
         r = torch.rsqrt(var + eps)                       # (..., 1) fp32
         ctx.save_for_backward(x, scale, r)
+        ctx.group, ctx.width = group, width
         return (x32 * r).to(x.dtype) * scale.to(x.dtype)
 
     @staticmethod
@@ -157,12 +182,12 @@ class RMSNormVJP(torch.autograd.Function):
         x, scale, r = ctx.saved_tensors
         dtype = x.dtype
         gw = g * scale.to(dtype)
-        m = (gw * x).float().sum(dim=-1, keepdim=True) / x.shape[-1]
+        m = _row_mean(gw * x, ctx.group, ctx.width)
         rx = r * r * r * m                               # (..., 1) fp32
         dx = gw * r.to(dtype) - x * rx.to(dtype)
         dscale = (g * (x * r.to(dtype))).float().sum(
             dim=tuple(range(x.dim() - 1))).to(scale.dtype)
-        return dx, dscale, None
+        return dx, dscale, None, None
 
 
 def rope_frequencies(head_dim: int, theta: float = 1e4,

@@ -20,11 +20,14 @@ data rank's tokens and routes them whole (the router is replicated over
 the FFN columns it holds, and its output is a partial sum that the
 caller reduces over ``model`` (``models.transformer``).  So the port has
 the one path, and ``moe_a2a`` is accepted (``layers.opt_enabled``) and
-changes nothing.  On a mesh a rank groups its data rank's tokens, which
-are the reference's groups only when they are whole groups of
-``GROUP_SIZE`` (``launch.steps`` refuses other meshes for an MoE).  The
-router, dispatch, expert and combine products are plain matrix products
-outside any kernel, as the reference leaves them to XLA
+changes nothing.  The groups are the reference's, formed over the global
+batch's tokens in order: g = min(``GROUP_SIZE``, the global token count).
+On a mesh (``split``) a rank whose tokens are whole groups routes them
+alone; otherwise it gathers the tokens over the ranks that hold the batch
+(all-gather forward, a sum over the ranks and its block backward, as an
+FSDP gather), routes the groups its own tokens fall in, and keeps its
+rows.  The router, dispatch, expert and combine products are plain
+matrix products outside any kernel, as the reference leaves them to XLA
 (``torch.einsum``, in ``x.dtype``).
 """
 from __future__ import annotations
@@ -33,6 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .. import parallel
 
 #: tokens a group (the reference's ``moe_ffn`` default)
 GROUP_SIZE = 256
@@ -86,22 +91,34 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
             capacity_factor: float = 1.25,
             group_size: int = GROUP_SIZE,
-            experts: Optional[slice] = None) -> torch.Tensor:
+            experts: Optional[slice] = None, split=None) -> torch.Tensor:
     """Top-k capacity-dispatch MoE with SwiGLU experts: x (B, S, d),
     router (d, E), w_gate / w_up (E, d, f), w_down (E, f, d) -> (B, S, d)
     in ``x.dtype``.  ``experts``: the weights are those experts of the E
     that the router scores (expert parallelism), and the output is their
-    part of the sum."""
+    part of the sum.  ``split``: the process group whose ranks hold the
+    global batch's rows in blocks, in rank order, this rank ``x`` (None:
+    ``x`` is the whole batch)."""
     b, s, d = x.shape
     e = router.shape[1]
-    tokens = b * s
+    local = b * s
+    tokens = local * parallel.size(split)
     g = min(group_size, tokens)
     if tokens % g:
         raise ValueError(f"tokens={tokens} not divisible by group={g}")
-    ng = tokens // g
     cap = expert_capacity(g, e, top_k, capacity_factor)
 
-    xg = x.reshape(ng, g, d)
+    xs = x.reshape(local, d)
+    keep = slice(0, local)
+    if local % g:
+        # part groups: the groups this rank's tokens fall in, from every
+        # rank's tokens
+        lo = parallel.rank(split) * local
+        first, last = lo // g, -(-(lo + local) // g)
+        xs = parallel.gather_data(xs, 0, split)[first * g:last * g]
+        keep = slice(lo - first * g, lo - first * g + local)
+    ng = xs.shape[0] // g
+    xg = xs.reshape(ng, g, d)
     dispatch, combine = route(xg, router, top_k, cap)
     if experts is not None:
         dispatch, combine = dispatch[:, :, experts], combine[:, :, experts]
@@ -111,4 +128,4 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     h = F.silu(h_g) * h_u
     xout = torch.einsum("necf,efd->necd", h, w_down.to(x.dtype))
     y = torch.einsum("ngec,necd->ngd", combine, xout)
-    return y.reshape(b, s, d)
+    return y.reshape(-1, d)[keep].reshape(b, s, d)

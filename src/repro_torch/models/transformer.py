@@ -179,8 +179,13 @@ def _kv_read(lo: int, hi: int, n_rep: int) -> Union[slice, list]:
     return per_q
 
 
-def layout(cfg: ModelConfig, mesh) -> Optional[Layout]:
-    """The ``Layout`` of ``cfg`` on ``mesh`` (None without a mesh)."""
+def layout(cfg: ModelConfig, mesh,
+           layer_specs: Optional[Dict[str, P]] = None) -> Optional[Layout]:
+    """The ``Layout`` of ``cfg`` on ``mesh`` (None without a mesh).
+    ``layer_specs``: the specs of the leaves a layer's computation takes,
+    without a layer axis, where they are not this family's stacked layers
+    (the hybrid's shared block, ``models.ssm_lm``); a config without
+    attention heads has an empty attention layout."""
     if mesh is None:
         return None
     sizes = mesh.sizes
@@ -188,10 +193,10 @@ def layout(cfg: ModelConfig, mesh) -> Optional[Layout]:
     coord = dict(zip(mesh.axis_names, mesh.coordinate()))
     r = coord.get("model", 0)
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    heads = m > 1 and h % 16 == 0
-    kv_heads = m > 1 and kv % 16 == 0
+    heads = m > 1 and h > 0 and h % 16 == 0
+    kv_heads = m > 1 and kv > 0 and kv % 16 == 0
     q_heads = slice(r * h // m, (r + 1) * h // m) if heads else slice(0, h)
-    if kv_heads:
+    if kv_heads or not h:
         kv_read: Union[slice, list] = slice(r * kv // m, (r + 1) * kv // m)
     else:
         kv_read = _kv_read(q_heads.start, q_heads.stop, h // kv)
@@ -208,14 +213,15 @@ def layout(cfg: ModelConfig, mesh) -> Optional[Layout]:
     specs = _flat_specs(cfg)
     v_rows = local_block(mesh, specs["lm_head"], (cfg.d_model,
                                                   padded_vocab(cfg)))[1]
+    if layer_specs is None:
+        layer_specs = {n[len("layers."):]: P(*s[1:])
+                       for n, s in specs.items() if n.startswith("layers.")}
     return Layout(
         data=mesh.group("data") if "data" in sizes else None,
         model=mesh.group("model") if "model" in sizes else None,
         m=m, r=r, heads=heads, kv_heads=kv_heads, q_heads=q_heads,
         kv_read=kv_read,
-        experts=experts, vocab_lo=v_rows.start,
-        specs={n[len("layers."):]: P(*s[1:]) for n, s in specs.items()
-               if n.startswith("layers.")},
+        experts=experts, vocab_lo=v_rows.start, specs=dict(layer_specs),
         partial=frozenset(partial))
 
 
@@ -313,22 +319,17 @@ def _placed(lay: Optional[Layout], lp: Dict[str, torch.Tensor]
     return out
 
 
-def _attn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                x: torch.Tensor, positions: torch.Tensor,
-                cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cache_pos: Optional[int] = None,
-                lay: Optional[Layout] = None):
-    """One attention sub-block.  With ``cache_kv`` the step's keys and
-    values are first written into the cache at ``cache_pos``.  On a
-    ``lay``: the rank's query heads and the KV heads they read (every KV
-    head, at the rank's head-dim slice, into a cache whose head dim is
-    over ``model``), ``wo``'s partial sums reduced over ``model``."""
+def _qkv(cfg: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+         positions: torch.Tensor, lay: Optional[Layout] = None,
+         all_kv: bool = False):
+    """The attention sub-block's queries, keys and values (B, S, heads,
+    hd), normed (``qk_norm``) and rotated.  On a ``lay`` with the query
+    heads over ``model``: the rank's query heads, and the KV heads they
+    read (``all_kv``: every KV head the rank holds)."""
     dtype = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
-    tp = lay is not None and lay.heads
-    split_hd = cache_kv is not None and lay is not None and lay.m > 1 \
-        and not lay.kv_heads
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    tp = lay is not None and lay.heads
     if tp:
         h = parallel.copy_to_model(h, lay.model)
 
@@ -337,14 +338,45 @@ def _attn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                                                      w.shape[2])
 
     wk, wv = lp["wk"], lp["wv"]
-    if tp and not lay.kv_heads and not split_hd:
+    if tp and not lay.kv_heads and not all_kv:
         wk, wv = wk[:, lay.kv_read], wv[:, lay.kv_read]
     q, k, v = proj(lp["wq"]), proj(wk), proj(wv)
     if cfg.qk_norm:
         q = L.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_out(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
+              out: torch.Tensor, lay: Optional[Layout] = None
+              ) -> torch.Tensor:
+    """``wo`` of the attention's output (B, S, heads, hd); on a ``lay``
+    with the heads over ``model``, its partial sums reduced there."""
+    b, s = out.shape[:2]
+    hh, hd, d = lp["wo"].shape
+    out = out.reshape(b, s, hh * hd) @ lp["wo"].reshape(hh * hd, d).to(
+        dtype_of(cfg.compute_dtype))
+    tp = lay is not None and lay.heads
+    return parallel.reduce_from_model(out, lay.model) if tp else out
+
+
+def _attn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
+                x: torch.Tensor, positions: torch.Tensor,
+                cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_pos: Optional[int] = None,
+                lay: Optional[Layout] = None):
+    """One attention sub-block (within ``cfg.attn_window`` keys where it is
+    set).  With ``cache_kv`` the step's keys and values are first written
+    into the cache at ``cache_pos``.  On a ``lay``: the rank's query heads
+    and the KV heads they read (every KV head, at the rank's head-dim
+    slice, into a cache whose head dim is over ``model``), ``wo``'s
+    partial sums reduced over ``model``."""
+    s = x.shape[1]
+    tp = lay is not None and lay.heads
+    split_hd = cache_kv is not None and lay is not None and lay.m > 1 \
+        and not lay.kv_heads
+    q, k, v = _qkv(cfg, lp, x, positions, lay, all_kv=split_hd)
 
     if split_hd:
         kc, vc = cache_kv
@@ -368,17 +400,18 @@ def _attn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
                           kv_len=cache_pos + s)
     else:
         out = L.attention(q, k, v, causal=cfg.causal, q_offset=0,
-                          block_kv=cfg.flash_block_kv)
-    hh, hd = lp["wo"].shape[0], lp["wo"].shape[1]
-    out = out.reshape(b, s, hh * hd) @ lp["wo"].reshape(hh * hd, d).to(dtype)
-    return parallel.reduce_from_model(out, lay.model) if tp else out
+                          block_kv=cfg.flash_block_kv,
+                          window=cfg.attn_window)
+    return _attn_out(cfg, lp, out, lay)
 
 
 def _ffn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-               x: torch.Tensor, lay: Optional[Layout] = None) -> torch.Tensor:
+               x: torch.Tensor, lay: Optional[Layout] = None,
+               split=None) -> torch.Tensor:
     """The MLP sub-block; on a ``lay`` with a model axis, column- then
-    row-parallel (an MoE on the rank's experts or FFN columns), the
-    partial sums reduced over ``model``."""
+    row-parallel (an MoE on the rank's experts or FFN columns, its token
+    groups formed over ``split``'s rows), the partial sums reduced over
+    ``model``."""
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     tp = lay is not None and lay.m > 1
     if tp:
@@ -387,7 +420,8 @@ def _ffn_block(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
         y = moe_ffn(h, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
                     top_k=cfg.experts_per_token,
                     capacity_factor=cfg.capacity_factor,
-                    experts=lay.experts if lay is not None else None)
+                    experts=lay.experts if lay is not None else None,
+                    split=split)
     else:
         y = L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return parallel.reduce_from_model(y, lay.model) if tp else y
@@ -431,36 +465,43 @@ def _unembed(cfg: ModelConfig, params: TransformerLM,
 
 def _layer(cfg: ModelConfig, lay: Optional[Layout],
            lp: Dict[str, torch.Tensor], x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, split=None) -> torch.Tensor:
     lp = _placed(lay, lp)
     x = x + _attn_block(cfg, lp, x, positions, lay=lay)
-    return x + _ffn_block(cfg, lp, x, lay)
+    return x + _ffn_block(cfg, lp, x, lay, split)
 
 
 def _forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
-             positions: Optional[torch.Tensor], remat: str) -> torch.Tensor:
+             positions: Optional[torch.Tensor], remat: str,
+             split=None) -> torch.Tensor:
     x = _embed(cfg, params, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     for lp in params.layers.unbind():
-        x = L.remat_call(remat, _layer, cfg, params.layout, lp, x, positions)
+        x = L.remat_call(remat, _layer, cfg, params.layout, lp, x, positions,
+                         split)
     return _unembed(cfg, params, x)
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: TransformerLM, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            split=None) -> torch.Tensor:
     """Full-sequence forward of tokens (B, S) (or embeddings (B, S, d))
     -> logits (B, S, V_pad) (on a mesh the rank's vocab columns).  Prefill
     path: one flash-attention launch per layer on the card, causal or not
-    as ``cfg.causal``, no gradient."""
-    return _forward(cfg, params, tokens, positions, remat="none")
+    as ``cfg.causal``, no gradient.  ``split``: the process group whose
+    ranks hold the global batch's rows in blocks, this rank ``tokens``
+    (None: ``tokens`` are the whole batch), which an MoE's token groups
+    are formed over (``models.moe.moe_ffn``)."""
+    return _forward(cfg, params, tokens, positions, "none", split)
 
 
 def train_forward(cfg: ModelConfig, params: TransformerLM,
                   tokens: torch.Tensor,
-                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  positions: Optional[torch.Tensor] = None,
+                  split=None) -> torch.Tensor:
     """``forward`` with gradients: the reference's train path.
 
     ``cfg.remat`` (``layers.remat_call``, per layer): ``"full"``
@@ -468,9 +509,9 @@ def train_forward(cfg: ModelConfig, params: TransformerLM,
     ``jax.checkpoint`` of the scan body), its FSDP gathers included;
     ``"dots"`` saves the projections' outputs and recomputes the rest;
     under either a layer's flash kernel launches twice a step.
-    ``"none"`` keeps every activation.
+    ``"none"`` keeps every activation.  ``split`` as ``forward``'s.
     """
-    return _forward(cfg, params, tokens, positions, cfg.remat)
+    return _forward(cfg, params, tokens, positions, cfg.remat, split)
 
 
 def token_nll(cfg: ModelConfig, params: TransformerLM, logits: torch.Tensor,
@@ -529,13 +570,14 @@ def cache_specs(cfg: ModelConfig, fsdp: str = "data", tp: str = "model"):
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: TransformerLM, cache,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, split=None):
     """One autoregressive step: tokens (B, 1) (or embeddings (B, 1, d)) at
     position ``pos``.  Returns (logits (B, 1, V), cache), the cache updated
     in place.  Attention over the cache is causal for every family, the
     encoders' too, as in the reference (``applicable_shapes`` lists no
     decode cell for an encoder).  On a mesh: the rank's rows of the
-    cache's batch, its block of the cache, its vocab columns."""
+    cache's batch, its block of the cache, its vocab columns; ``split``
+    as ``forward``'s."""
     pos = int(pos)
     lay = params.layout
     x = _embed(cfg, params, tokens)
@@ -547,5 +589,5 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, cache,
         x = x + _attn_block(cfg, lp, x, positions,
                             cache_kv=(kc_all[i], vc_all[i]), cache_pos=pos,
                             lay=lay)
-        x = x + _ffn_block(cfg, lp, x, lay)
+        x = x + _ffn_block(cfg, lp, x, lay, split)
     return _unembed(cfg, params, x), cache

@@ -71,15 +71,18 @@ class CodedStepConfig:
         return self.coded_batch_rows // self.n_workers
 
 
-def weighted_loss_fn(cfg: ModelConfig) -> Callable:
+def weighted_loss_fn(cfg: ModelConfig, split=None) -> Callable:
     """loss(params, tokens, labels, weights) with per-example weights.
 
     weights (B,) -- decode coefficients expanded to examples; the weighted
     mean over coded rows equals the plain mean over unique rows when the
-    weights come from ``decode_example_weights``.
+    weights come from ``decode_example_weights``.  ``split``: the process
+    group over which the rows are the global batch's blocks
+    (``models.api.train_forward``; a cell on a mesh).
     """
     def loss(params, tokens, labels, weights):
-        logits = api.train_forward(cfg, params, tokens).float()
+        logits = api.train_forward(cfg, params, tokens,
+                                   split=split).float()
         nll = api.token_nll(cfg, params, logits, labels).mean(dim=-1)  # (B,)
         return (nll * weights).mean()
     return loss

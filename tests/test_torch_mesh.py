@@ -40,12 +40,12 @@ CPU = "cpu"
 #: the four reduced families of the step (tests/test_torch_steps.py's
 #: ``reduced``)
 FAMILIES = ["qwen3-0.6b", "dbrx-132b", "mamba2-1.3b", "zamba2-1.2b"]
-#: the families that keep whole parameters on a data-only mesh
+#: the SSM and hybrid families
 SSM_FAMILIES = ["mamba2-1.3b", "zamba2-1.2b"]
 SHAPE = ShapeConfig("train_small", "train", 16, 4)     # S 16, B 4
-#: the MoE at its default capacity factor, where tokens drop: a rank groups
-#: its own tokens, so its rows must hold whole groups of moe.GROUP_SIZE
-#: (256 tokens a rank over four ranks) to be the reference's groups
+#: the MoE at its default capacity factor, where tokens drop, its rows
+#: whole groups of moe.GROUP_SIZE a rank (256 tokens a rank over four
+#: ranks), which it groups alone
 MOE_SHAPE = ShapeConfig("train_moe", "train", 256, 4)  # S 256, B 4
 
 
@@ -211,12 +211,12 @@ elif case == "model2":
     assert mesh.shape == (2, 2), mesh.shape
     said = {}
     for arch, cfg in job["cfgs"].items():
-        try:
-            steps.build_train_cell(ModelConfig(**cfg),
-                                   ShapeConfig(**job["shape"]), mesh=mesh)
-            said[arch] = "built"
-        except NotImplementedError as e:
-            said[arch] = str(e)
+        cell = steps.build_train_cell(ModelConfig(**cfg),
+                                      ShapeConfig(**job["shape"]), mesh=mesh)
+        params = cell.materialize(0)[0]
+        said[arch] = {"coord": list(mesh.coordinate()),
+                      "shapes": {n: list(p.shape)
+                                 for n, p in params.named_parameters()}}
     json.dump({"said": said}, open(f"{out}/model2_{rank}.json", "w"))
 elif case == "serve":
     from repro_torch._device import generator
@@ -256,7 +256,7 @@ elif case == "restore":
     assert all(t.device == mesh.device for t in adamw.named(tree).values())
     whole, _ = checkpoint.restore_sharded(
         job["ckpt"], 3, adamw.named(like),
-        pmesh.named(mesh, api.placement(cfg)))
+        pmesh.named(mesh, {n: pmesh.P() for n in adamw.named(like)}))
     flat.update({f"whole/{n}": t.numpy() for n, t in whole.items()})
     np.savez(f"{out}/restore_{rank}.npz", **flat)
 dist.barrier()
@@ -526,8 +526,7 @@ def _one_device_step(arch: str, ref) -> dict:
 
 def _blocks_of(arch: str, flat: dict, rank: int) -> dict:
     """Rank ``rank``'s blocks of the whole leaves ``flat`` on (data 4,
-    model 1): a transformer family's by ``partition_specs`` (FSDP over
-    data), an SSM family's whole (``api.placement``)."""
+    model 1), by ``partition_specs`` (FSDP over data; ``api.placement``)."""
     specs = api.placement(reduced(arch))
     out = {}
     for key, value in flat.items():
@@ -555,10 +554,10 @@ def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
     """One train step on four gloo ranks (a row each) against the
     reference's cell jitted on (data 4, model 1): the loss within
     LOSS_RTOL, and each rank's parameters and moments within RTOL + ATOL
-    of the reference's and of the port's one-device cell's.  The
-    transformer families (qwen3, dbrx) hold the reference's blocks (FSDP:
-    their gathers reduce-scatter the gradients); the SSM families hold
-    whole leaves (one flat all-reduce), bit-equal on every rank.  The MoE
+    of the reference's and of the port's one-device cell's.  Every family
+    holds the reference's blocks (FSDP: the gathers reduce-scatter the
+    gradients; the leaves replicated over data, one flat all-reduce,
+    bit-equal on every rank).  The MoE
     (dbrx) runs at its default capacity factor, where tokens drop, with a
     rank's row one whole token group (MOE_SHAPE)."""
     ref = np.load(runs / f"ref_{arch}.npz")
@@ -573,7 +572,7 @@ def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
     skipped = sum(int(m.sum()) for m in skip.values())
     assert skipped < 0.01 * sum(m.size for m in skip.values()), skipped
     one = _one_device_step(arch, ref)
-    whole = not api.places(reduced(arch))
+    specs = api.placement(reduced(arch))
     for i, r in enumerate(ranks):
         np.testing.assert_allclose(r["loss"], ref["loss"], rtol=LOSS_RTOL)
         np.testing.assert_allclose(r["grad_norm"], ref["grad_norm"],
@@ -585,7 +584,8 @@ def test_four_gloo_ranks_match_reference_mesh_step(runs, arch):
         for key in r:
             if key.split("/")[0] in ("param", "mu", "nu"):
                 assert r[key].shape == mine[key].shape, key
-                if whole:
+                spec = specs[key.split("/", 1)[1]]
+                if not any("data" in pmesh.axes_of(e) for e in spec):
                     assert np.array_equal(r[key], ranks[0][key]), key
         for tag in ("param", "mu", "nu"):
             _leafwise(r, mine, tag, mine_skip)
@@ -620,25 +620,31 @@ def model2(tmp_path_factory):
 
 @pytest.mark.parametrize("arch", SSM_FAMILIES)
 def test_train_cell_on_a_model_axis_raises(model2, arch):
-    """On (2, 2) an ssm or hybrid config's train cell raises, naming the
-    ROADMAP item; a transformer family's builds (it places over
-    model)."""
+    """On (2, 2) an ssm or hybrid config's train cell builds, as a
+    transformer family's, and the parameters it draws are each rank's
+    blocks of the trees (``partition_specs``: inner channels, heads and
+    vocab over model, FSDP over data); it raises no more."""
     for said in model2:
-        assert said["qwen3-0.6b"] == "built"
-        msg = said[arch]
-        assert "model axis 2" in msg and "ROADMAP" in msg and \
-            "ssm and hybrid families on a two-axis mesh" in msg, msg
+        view = pmesh.Mesh(("data", "model"), (2, 2))
+        for a in ("qwen3-0.6b", arch):
+            cfg = reduced(a)
+            shapes = {n: tuple(t.shape)
+                      for n, t in adamw.named(api.param_shapes(cfg)).items()}
+            want = {n: list(_at(view, said[a]["coord"], spec,
+                                shapes[n]))
+                    for n, spec in api.placement(cfg).items()}
+            assert said[a]["shapes"] == want, a
 
 
 def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
     """Two gloo ranks on (data 2, model 1), each holding its blocks
-    (``Cell.materialize``'s draw: qwen3's leaves FSDP-sharded, which its
-    cells gather over data, zamba2's whole, which need no collective):
-    the blocks are the one-device parameters'; the prefill cell gives
-    each rank its batch_spec rows of the one-device cell's logits, and
-    three decode steps give its rows where ``cache_specs`` shards the
-    batch (qwen3's KV cache) and every row where it does not (zamba2's
-    state, replicated as in the reference); within 1e-5 of each step's
+    (``Cell.materialize``'s draw: both families' leaves FSDP-sharded,
+    which their cells gather over data): the blocks are the one-device
+    parameters'; the prefill cell and three decode steps give each rank
+    its batch_spec rows of the one-device cell's logits, where
+    ``cache_specs`` shards the batch (qwen3's KV cache) and where it does
+    not (zamba2's state, replicated as in the reference: the step
+    gathers the tokens and runs every row); within 1e-5 of each step's
     max |logit| (fp32, products over fewer rows)."""
     from repro_torch._device import generator
     archs = ["qwen3-0.6b", "zamba2-1.2b"]
@@ -671,11 +677,9 @@ def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
                 block = _rank_block(specs[n], p.shape, r, ranks=2)
                 assert np.array_equal(got[f"{arch}/param/{n}"],
                                       p.detach().numpy()[block]), n
-            assert (int(got[f"{arch}/gathers"]) > 0) == api.places(cfg)
+            assert int(got[f"{arch}/gathers"]) > 0
             p0, p1, d0, d1 = got[f"{arch}/rows"]
-            assert (p0, p1) == (2 * r, 2 * r + 2)
-            assert (d0, d1) == ((2 * r, 2 * r + 2) if arch == "qwen3-0.6b"
-                                else (0, 4))
+            assert (p0, p1) == (d0, d1) == (2 * r, 2 * r + 2)
             for key, ref in want.items():
                 rows = slice(p0, p1) if key == "prefill" else slice(d0, d1)
                 scale = float(np.abs(ref).max())
@@ -686,8 +690,8 @@ def test_prefill_and_decode_cells_on_two_ranks_need_no_collective(tmp_path):
 def test_restore_sharded_gives_each_rank_the_checkpoint(tmp_path):
     """zamba2's checkpoint restored on two gloo ranks: by the reference's
     ``partition_specs`` each rank gets its block of every leaf (GSPMD's
-    placement, here over data), by ``api.placement`` (how the port holds
-    an SSM family) every leaf whole; bit for bit the saved values."""
+    placement, here over data), by replicated specs every leaf whole; bit
+    for bit the saved values."""
     from repro_torch import checkpoint
     from repro_torch._device import generator
     cfg = reduced("zamba2-1.2b")
@@ -732,33 +736,48 @@ def test_production_mesh_needs_its_rank_count():
         pmesh.make_production_mesh(multi_pod=True)
 
 
+def _at(view, coord, spec, shape):
+    """The shape of the block at ``coord`` of a mesh of names and sizes."""
+    class At:
+        axis_names, sizes, size = view.axis_names, view.sizes, view.size
+
+        def coordinate(self):
+            return tuple(coord)
+    return pmesh.shard_shape(At(), spec, shape)
+
+
 @pytest.mark.parametrize("arch", SSM_FAMILIES)
 def test_cells_on_a_model_axis_raise_before_placing_anything(arch):
-    """Every builder, ``api.build``, ``api.init_params`` and
-    ``api.init_cache`` of an ssm or hybrid config raise on a mesh of
-    names and sizes with model 2, before anything is placed."""
-    from repro_torch._device import generator
+    """The three ``build_*_cell`` functions and ``api.init_cache`` of an
+    ssm or hybrid config build on a mesh of names and sizes with model 2 (they raise no more;
+    the modules, which name process groups, are placed on real ranks in
+    ``test_train_cell_on_a_model_axis_raises``): the cells' rows are the
+    ``batch_spec`` rows at the mesh's coordinate (0, 0), the cache the
+    block shapes of ``cache_specs`` there (the SSM state over its heads
+    and inner channels, the hybrid's ring over its KV heads)."""
     m = pmesh.Mesh(("data", "model"), (2, 2))
     cfg = reduced(arch)
     for build in (steps.build_train_cell, steps.build_prefill_cell,
                   steps.build_decode_cell):
-        with pytest.raises(NotImplementedError, match="model axis 2"):
-            build(cfg, SHAPE, mesh=m)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        api.build(cfg, CPU, mesh=m)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        api.init_params(cfg, generator(0, CPU), mesh=m)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        api.init_cache(cfg, 2, 8, device=CPU, mesh=m)
+        assert build(cfg, SHAPE, mesh=m).rows == slice(0, 2)
+    cache = api.init_cache(cfg, 2, 8, device=CPU, mesh=m)
+    whole = api.cache_shapes(cfg, 2, 8)
+    cspecs = api.cache_specs(cfg)
+    for k in ("attn_k",) if "attn_k" in cache else ():
+        assert tuple(cache[k].shape) == pmesh.shard_shape(
+            m, cspecs[k], whole[k].shape)
+    for k, t in cache["ssm"].items():
+        assert tuple(t.shape) == pmesh.shard_shape(
+            m, cspecs["ssm"][k], whole["ssm"][k].shape)
 
 
 def test_moe_cells_raise_where_a_rank_holds_part_of_a_token_group():
-    """The reduced dbrx on (data 2, model 1): every builder raises, naming
-    the ROADMAP item, where a rank's tokens are not whole groups of
+    """The reduced dbrx on (data 2, model 1): every ``build_*_cell``
+    function builds where a rank's tokens are not whole groups of
     ``moe.GROUP_SIZE`` (train and prefill at S 16: 32 tokens a rank;
-    decode: 2); the train cell builds where they are (MOE_SHAPE: 512), and
-    where the batch does not split (B 3: every rank holds it all, as the
-    reference's global groups)."""
+    decode: 2; the MoE then forms the reference's global groups from both
+    ranks' tokens), as where they are (MOE_SHAPE: 512) and where the batch
+    does not split (B 3: every rank holds it all); none raises now."""
     m = pmesh.Mesh(("data", "model"), (2, 1))
     cfg = reduced("dbrx-132b")
     for build, shape in ((steps.build_train_cell, SHAPE),
@@ -766,9 +785,7 @@ def test_moe_cells_raise_where_a_rank_holds_part_of_a_token_group():
                           ShapeConfig("p", "prefill", 16, 4)),
                          (steps.build_decode_cell,
                           ShapeConfig("d", "decode", 16, 4))):
-        with pytest.raises(NotImplementedError,
-                           match="MoE token groups across ranks"):
-            build(cfg, shape, mesh=m)
+        assert build(cfg, shape, mesh=m).rows == slice(0, 2)
     assert steps.build_train_cell(cfg, MOE_SHAPE, mesh=m).rows == slice(0, 2)
     whole = steps.build_train_cell(cfg, ShapeConfig("t", "train", 16, 3),
                                    mesh=m)

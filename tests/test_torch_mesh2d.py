@@ -71,8 +71,9 @@ MESHES = {"2x2": ((2, 2), ("data", "model")),
 #: the pod mesh runs qwen3's train cell only
 POD_CASE = "qwen3"
 B, S, DECODE_LEN, DECODE_STEPS = 4, 16, 8, 4
-#: an MoE's data rank must hold whole token groups of 256 (models.moe):
-#: two rows of 128 a data rank at data 2
+#: an MoE's data rank holds whole token groups of 256 here (models.moe's
+#: local groups): two rows of 128 a data rank at data 2
+#: (tests/test_torch_mesh2d_ssm.py holds the part groups)
 MOE_S = 128
 # fp32 on both sides, sums in other orders (and over ranks).  The loss and
 # grad norm 1e-5 relative; the updated parameters and moments rtol 1e-5 +
@@ -100,8 +101,9 @@ def seq_of(name: str) -> int:
 
 
 def meshes_of(name: str):
-    """The meshes of a case's cells: an MoE's decode only at data 1 (a
-    decode step's B tokens are one group; at data 2 the cells raise)."""
+    """The meshes of a case's cells: an MoE's decode only at data 1 here
+    (at data 2 a decode step's B tokens are part groups a data rank:
+    tests/test_torch_mesh2d_ssm.py)."""
     out = ["2x2", "1x4"] + (["pod"] if name == POD_CASE else [])
     return out
 
