@@ -263,6 +263,24 @@ Phases, none of whose failures is caught (any fault exits non-zero):
     rank's pod rows; d. the collectives a train step, each rank's bytes
     and peak memory; e. the scan and the windowed flash kernel at a
     rank's training shapes, two rows of the kernels line.
+17. The dry run against the card (run after 16 and before 13): a. one
+    cell of each (family x kind) on the production (16, 16) and (2, 16,
+    16) meshes, each ``python -m repro_torch.launch.dryrun`` a subprocess
+    (rank 0 on meta under a fake process group, no card): arguments, temp
+    and peak GB, whether the peak fits the card, the bottleneck and the
+    roofline fraction, all predicted at the H100 datasheet constants of
+    ``launch.hlo_analysis``; b. qwen3-0.6b's phase 5 prefill (B 2 x S
+    4096) and phase 9 train step (16 x 256) traced on meta with no mesh,
+    then run on the card: the arguments' bytes exactly, the aten FLOPs
+    within 1 % of ``FlopCounterMode``'s count of the real step, the flash
+    launches (and each one's shapes and bytes) exactly, the peak above
+    the arguments within 10 % of ``max_memory_allocated`` above the
+    step's baseline; c. phase 15's four gloo ranks on (2, 2), qwen3-0.6b's
+    train step under the op recorder, against each rank's twin under a
+    fake group: the collectives (op, group size, bytes) in order exactly,
+    the arguments exactly, the peak within 10 %; d. two planted faults
+    must fail: a flash meta branch reporting half its bytes, a twin that
+    drops one collective's record.
 """
 from __future__ import annotations
 
@@ -292,10 +310,6 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:63"
 
-# Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12,        # fp32 outside tensor cores
-                  torch.bfloat16: 989e12}      # bf16 tensor cores, dense
 SMALL_GRID = [(4, 2), (6, 3), (8, 8), (5, 1)]  # tests/test_kernels.py:15
 SMALL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # At the paper-matvec shape both sides sum K = 8192 fp32 products, in
@@ -606,6 +620,28 @@ MESH2D_SSM_EVERY = 256
 MOE2D_SHORT_PREFILL = (4, 64)
 MESH2D_SSM_SCAN = (8, 256, 32, 64, 128)
 MESH2D_SSM_FLASH = (8, 256, 256, 16, 16, 64)
+# phase 17: the dry run against the card.  a: one cell of each (family x
+# kind) of the production meshes, each ``python -m repro_torch.launch.
+# dryrun`` a subprocess, both meshes.  b: qwen3-0.6b's cells of phases 5
+# and 9 on one device, traced on meta and run on the card: the arguments
+# exactly, the aten FLOPs within 1 % of FlopCounterMode's count of the
+# real step, the flash launches exactly (and each launch's bytes the
+# bytes of the card's operands and outputs), the peak above the
+# arguments within 10 % of max_memory_allocated above the step's
+# baseline.  c: four gloo ranks on (2, 2) (phase 15's harness) against
+# the twin of each rank under a fake group: the collectives (op, group
+# size, bytes) exactly and in order, the peak within 10 %.  d: a twin
+# whose flash meta branch reports half its bytes, and one that drops a
+# collective's record, must fail b's and c's checks.
+DRYRUN_CELLS = [("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+                ("qwen3-0.6b", "decode_32k"),
+                ("qwen3-moe-235b-a22b", "train_4k"),
+                ("dbrx-132b", "prefill_32k"), ("mamba2-1.3b", "long_500k"),
+                ("zamba2-1.2b", "train_4k"), ("hubert-xlarge", "prefill_32k"),
+                ("internvl2-76b", "train_4k")]
+DRYRUN_ONE = {"prefill": (2, 4096), "train": (16, 256)}     # (B, S)
+DRYRUN_FLOPS_RTOL, DRYRUN_PEAK_RTOL = 0.01, 0.10
+DRYRUN_TIMEOUT = 400
 # phase 8: benchmarks/control_loop.py's full gate — n, steps a regime,
 # seed, its regret limit, the streaming SLO p99's limit, the closed-form
 # re-plan's limit
@@ -706,9 +742,11 @@ def time_ms(fn, reps: int) -> float:
 
 def roofline(nbytes: float, ops: float, dtype) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
-    operations over the peak rate of ``dtype``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    operations over the peak rate of ``dtype`` (the published H100 SXM
+    peaks at 700 W, ``repro_torch.launch.hlo_analysis``'s constants)."""
+    from repro_torch.launch import hlo_analysis as H
+    t_bytes = nbytes / H.HBM_BW * 1e3
+    t_ops = ops / H.peak_flops(dtype) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -730,17 +768,10 @@ def timed_turns(fns: dict, order, reps: dict) -> dict:
 
 
 def bound(G, A, X) -> tuple:
-    """(bound_ms, bound_by, bytes, operations): each input read once, the
-    output written once, against 2*k*M*K*N + 2*n*k*M*N operations (the
-    product with the k source blocks, then the encode) at the inputs' peak
-    rate."""
-    n, k = G.shape
-    _, M, K = A.shape
-    N = X.shape[1]
-    es = A.element_size()
-    nbytes = G.numel() * G.element_size() + (A.numel() + X.numel()
-                                             + n * M * N) * es
-    ops = 2.0 * k * M * K * N + 2.0 * n * k * M * N
+    """(bound_ms, bound_by, bytes, operations): ``coded_matmul``'s
+    ``cost`` at the inputs' peak rate."""
+    from repro_torch.kernels.coded_matmul.ops import cost
+    ops, nbytes = cost(G, A, X)
     return (*roofline(nbytes, ops, A.dtype), nbytes, ops)
 
 
@@ -840,20 +871,6 @@ def planted_faults(q, k, v, ref, atol: float, rtol: float) -> None:
         assert e > 1, f"the tolerance misses a planted fault: {name}"
 
 
-def kept_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> float:
-    """The (q, k) pairs a head keeps: all Sq * Sk without ``causal``; with
-    it, row i (at key position Sk - Sq + i) keeps min(pos + 1, window)
-    keys (every key up to its own without a window)."""
-    if not causal:
-        return float(sq * sk)
-
-    def upto(n: int) -> float:      # the rows at positions 0 .. n - 1
-        w = window if 0 < window < n else n
-        return w * (w + 1) / 2 + (n - w) * w
-
-    return upto(sk) - upto(sk - sq)
-
-
 def flash_compare(shape, dtype, causal: bool, gen, reps: int,
                   plant: bool = False) -> dict:
     """flash_attention against its plain version on one input, then the
@@ -863,6 +880,7 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     B, Sq, Sk, H, KV, D = shape
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
@@ -891,9 +909,7 @@ def flash_compare(shape, dtype, causal: bool, gen, reps: int,
                          "plain") if n in fns]
     t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
                                  "library": reps})
-    pairs = kept_pairs(Sq, Sk, causal)
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    ops = 4.0 * B * H * pairs * D
+    ops, nbytes = flash_cost(q, k, causal)
     b_ms, b_by = roofline(nbytes, ops, dtype)
     library = t.get("library")
     row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
@@ -939,6 +955,7 @@ def zoo_flash_compare(arch: str, gen, reps: int) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     (B, Sq, Sk, H, KV, D), causal = FLASH_ZOO[arch]
     dtype = torch.bfloat16
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
@@ -971,8 +988,7 @@ def zoo_flash_compare(arch: str, gen, reps: int) -> dict:
                           "lse", "kernel", "plain"),
                     {"plain": max(1, reps // 5), "kernel": reps, "lse": reps,
                      "library": reps})
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    ops = 4.0 * B * H * kept_pairs(Sq, Sk, causal) * D
+    ops, nbytes = flash_cost(q, k, causal)
     b_ms, b_by = roofline(nbytes, ops, dtype)
     print(f"  flash {arch} B={B} S={Sq} H={H} KV={KV} D={D} "
           f"{'causal' if causal else 'bidirectional'} bf16 o /limit "
@@ -1070,6 +1086,7 @@ def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
     ``plant``: also show that the tolerance catches two planted faults on
     this input, and split the call's device time over its CUDA kernels."""
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import cost as ssd_cost
     args = ssd_inputs(shape, dtype, gen, model_law)
     out = ssd_scan(*args, chunk=chunk)
     ref = ssd_chunked(*args, chunk)[0]
@@ -1088,13 +1105,8 @@ def ssd_compare(shape, chunk: int, dtype, gen, reps: int,
     t = timed_turns(fns, ["plain", "kernel", "kernel", "plain"],
                     {"plain": max(1, reps // 2), "kernel": reps})
     B, S, H, P, N = shape
-    nc, tri = S // chunk, chunk * (chunk + 1) / 2
-    # C B^T over the causal half once per (batch row, chunk); per head the
-    # causal half of the weighted sum, C h^T and the state update
-    ops = B * nc * (2.0 * tri * N + H * (2.0 * tri * P + 4.0 * chunk * N * P))
     x, dt, A, Bm, _ = args
-    nbytes = (2 * x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
-              + 2 * Bm.numel() * Bm.element_size())
+    ops, nbytes = ssd_cost(x, dt, A, Bm, chunk)
     # the products' operands are x's dtype: bf16 on the tensor cores
     b_ms, b_by = roofline(nbytes, ops, dtype)
     row = dict(max_abs_err=max_abs, ok=ok, ms=t["kernel"],
@@ -2066,6 +2078,7 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
     from repro_torch.kernels.flash_attention import (attention_lse_ref,
                                                      flash_attention,
                                                      flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     B, Sq, Sk, H, KV, D = shape
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
@@ -2101,9 +2114,7 @@ def flash_lse_compare(shape, dtype, causal: bool, gen, reps: int,
                          "kernel", "no_lse", "plain") if n in fns]
     t = timed_turns(fns, order, {"plain": max(1, reps // 2), "kernel": reps,
                                  "no_lse": reps, "library": reps})
-    pairs = kept_pairs(Sq, Sk, causal)
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size() + B * H * Sq * 4
-    ops = 4.0 * B * H * pairs * D
+    ops, nbytes = flash_cost(q, k, causal, with_lse=True)
     b_ms, b_by = roofline(nbytes, ops, dtype)
     library = t.get("library")
     sdpa = f"{library:.4f} ms" if library is not None else "n/a"
@@ -2423,6 +2434,7 @@ def windowed_flash_compare(shape, dtype, window: int, gen, reps: int,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     B, Sq, Sk, H, KV, D = shape
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, D), generator=gen, device="cuda").to(dtype)
@@ -2471,10 +2483,10 @@ def windowed_flash_compare(shape, dtype, window: int, gen, reps: int,
                          "lse", "kernel", "plain") if n in fns]
     t = timed_turns(fns, order, {"plain": max(1, reps // 5), "kernel": reps,
                                  "lse": reps, "library": reps})
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    ops = 4.0 * B * H * kept_pairs(Sq, Sk, True, window) * D
+    ops, nbytes = flash_cost(q, k, True, window)
     b_ms, b_by = roofline(nbytes, ops, dtype)
-    lse_b_ms, lse_b_by = roofline(nbytes + B * H * Sq * 4, ops, dtype)
+    lse_b_ms, lse_b_by = roofline(
+        flash_cost(q, k, True, window, with_lse=True)[1], ops, dtype)
     library = t.get("library")
     sdpa = f"{library:.4f} ms" if library is not None else "n/a"
     print(f"  flash B={B:2d} S={Sq:5d} H={H} KV={KV} D={D} causal "
@@ -3524,16 +3536,18 @@ def run_workers(jobs: list, env_opts: list, label: str) -> list:
 
 
 def worker_main(path: str) -> None:
-    """One subprocess of phase 14, 15 or 16 (``--worker JOB.json``)."""
+    """One subprocess of phase 14, 15, 16 or 17 (``--worker JOB.json``)."""
     if not torch.cuda.is_available():
-        raise RuntimeError("a phase 14, 15 or 16 worker needs the card: "
+        raise RuntimeError("a phase 14-17 worker needs the card: "
                            "torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     job = json.loads(Path(path).read_text())
     run = {"rank": mesh_rank, "switch": switch_run,
-           "mesh2d": mesh2d_rank, "mesh2d_ssm": mesh2d_ssm_rank}[job["kind"]]
+           "mesh2d": mesh2d_rank, "mesh2d_ssm": mesh2d_ssm_rank,
+           "dryrun_rank": dryrun_rank, "dryrun_twin": dryrun_twin
+           }[job["kind"]]
     Path(job["out"]).write_text(json.dumps(run(job)))
 
 
@@ -4536,6 +4550,332 @@ def mesh2d_ssm_phase(seed: int) -> list:
     ]
 
 
+def tensor_bytes(tree) -> int:
+    """The bytes of the tensors of a step's inputs (a module's parameters,
+    an optimizer state's moments), each tensor once: a rank's rows count
+    as rows, also where they are a view of the whole batch."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.nn.Module):
+            x = list(x.parameters()) + list(x.buffers())
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+    walk(tree)
+    return total
+
+
+def start_dryrun_sweep() -> list:
+    """Phase 17a's subprocesses, one a cell, both meshes, all at once:
+    (cell, process, JSONL path, log path)."""
+    import os
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("REPRO_SAVE_HLO", None)
+    procs = []
+    for i, (arch, shape) in enumerate(DRYRUN_CELLS):
+        out, log = build / f"dryrun_{i}.jsonl", build / f"dryrun_{i}.log"
+        out.unlink(missing_ok=True)
+        with open(log, "w") as f:
+            procs.append(((arch, shape), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "both", "--json",
+                 str(out)], env=env, stdout=f, stderr=subprocess.STDOUT,
+                cwd=str(ROOT)), out, log))
+    return procs
+
+
+def finish_dryrun_sweep(procs: list, smi: str) -> list:
+    """Waits for phase 17a's subprocesses (killing all on a failure or past
+    DRYRUN_TIMEOUT), prints each record and returns them."""
+    errors, records = [], []
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    try:
+        for cell, p, out, log in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if p.returncode:
+                errors.append(f"dry run of {cell} exit {p.returncode}: "
+                              f"{log.read_text()[-3000:]}")
+                continue
+            records += [json.loads(line) for line in
+                        out.read_text().splitlines()]
+            out.unlink()
+            log.unlink()
+    except subprocess.TimeoutExpired:
+        errors.append(f"a dry run ran past {DRYRUN_TIMEOUT} s")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    gb = 1e9
+    print(f"a. the production meshes, rank 0, predicted at the H100 "
+          f"datasheet constants (the card here: {smi.strip()}):", flush=True)
+    for r in records:
+        assert r["ok"] and r["rank"] == 0, r
+        print(f"  {r['arch']:20s} {r['shape']:12s} {r['mesh']:6s} traced in "
+              f"{r['compile_s']:5.1f} s: arguments "
+              f"{r['argument_bytes'] / gb:7.2f} GB, temp "
+              f"{r['temp_bytes'] / gb:7.2f} GB, peak "
+              f"{r['peak_bytes_per_device'] / gb:7.2f} GB, fits "
+              f"{r['fits']!s:5s}; T compute / memory / collective "
+              f"{r['t_compute'] * 1e3:.1f} / {r['t_memory'] * 1e3:.1f} / "
+              f"{r['t_collective'] * 1e3:.1f} ms, bottleneck "
+              f"{r['bottleneck']}, roofline fraction "
+              f"{r['roofline_fraction']:.4f}", flush=True)
+    assert len(records) == 2 * len(DRYRUN_CELLS), len(records)
+    return records
+
+
+def dryrun_kernel_bytes(events: list) -> list:
+    """Each kernel launch's bytes as the card's tensors give them: every
+    operand read once, every output written once."""
+    return [sum(math.prod(s) * getattr(torch, d).itemsize
+                for s, d in zip(e["shapes"], e["dtypes"])) for e in events]
+
+
+def dryrun_one_card(seed: int) -> None:
+    """Phase 17b (and d's first fault): the twin of qwen3-0.6b's prefill
+    and train cells on one device against the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import _trace
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch import dryrun, steps
+    cfg = get_config("qwen3-0.6b")
+    launches = {}
+    print("b. qwen3-0.6b on one device, the twin on meta against the card:",
+          flush=True)
+    # the scan's meta branch allocates its workspace by the Python layout
+    sizes = [(*shape, chunk) for shape, chunk in
+             (SSD_MAIN, *SSM_SSD_SHAPES, (MESH2D_SSM_SCAN, 256))]
+    same = [ssd_kernel.workspace_layout(*z) == ssd_kernel.workspace_bytes(*z)
+            for z in sizes]
+    print(f"  ssd_scan's workspace by the meta branch's layout = the kernel's "
+          f"at the main path's {len(sizes)} shapes: {all(same)}", flush=True)
+    assert all(same), list(zip(sizes, same))
+    for kind, (b, s) in DRYRUN_ONE.items():
+        shape = ShapeConfig(kind, kind, s, b)
+        build = steps.build_prefill_cell if kind == "prefill" \
+            else steps.build_train_cell
+        cell = build(cfg, shape, device="meta")
+        trace = dryrun.trace_step(cell, dryrun.rank_inputs(cell))
+        t_args, t_temp = trace.argument_bytes, \
+            trace.peak_bytes - trace.argument_bytes
+        t_flops = sum(e["flops"] for e in trace.of_kind("aten"))
+        t_kernels = trace.of_kind("kernel")
+
+        cell = build(cfg, shape, device="cuda")
+        inputs = cell.materialize(seed + 17)
+        real_args = tensor_bytes(inputs)
+        cell.fn(*inputs)                            # warm: cuBLAS, caches
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launched, events = flash_attention.launches, []
+        _trace.sinks.append(events.append)
+        try:
+            res = cell.fn(*inputs)
+            torch.cuda.synchronize()
+        finally:
+            _trace.sinks.remove(events.append)
+        real_temp = torch.cuda.max_memory_allocated() - base
+        launched = flash_attention.launches - launched
+        del res
+        counter = FlopCounterMode(display=False)
+        with counter:
+            cell.fn(*inputs)
+        torch.cuda.synchronize()
+        real_flops = counter.get_total_flops()
+        del inputs, cell
+        torch.cuda.empty_cache()
+
+        flops_rel = abs(t_flops - real_flops) / real_flops
+        peak_rel = abs(t_temp - real_temp) / real_temp
+        same_launches = [(e["shapes"], e["dtypes"]) for e in t_kernels] == \
+            [(e["shapes"], e["dtypes"]) for e in events]
+        bytes_ok = [e["bytes"] for e in t_kernels] == \
+            dryrun_kernel_bytes(events)
+        same_args = "equal" if t_args == real_args else "DIFFER"
+        print(f"  {kind} B {b} x S {s}: arguments twin {t_args:,} B, card "
+              f"{real_args:,} B ({same_args}); aten FLOPs twin "
+              f"{t_flops:.6e}, FlopCounterMode on the card "
+              f"{real_flops:.6e} (relative {flops_rel:.2e}, limit "
+              f"{DRYRUN_FLOPS_RTOL:g}); flash launches twin "
+              f"{trace.launches('flash_attention')}, card {launched}, the "
+              f"same shapes {same_launches}, each launch's bytes the card's "
+              f"tensors' {bytes_ok}; peak above the arguments twin "
+              f"{t_temp / 1e9:.3f} GB, card max_memory_allocated above the "
+              f"baseline {real_temp / 1e9:.3f} GB (relative {peak_rel:.2e}, "
+              f"limit {DRYRUN_PEAK_RTOL:g}); the twin's trace "
+              f"{trace.seconds:.1f} s, {len(trace.events):,} events",
+              flush=True)
+        assert t_args == real_args, (kind, t_args, real_args)
+        assert flops_rel <= DRYRUN_FLOPS_RTOL, (kind, t_flops, real_flops)
+        assert trace.launches("flash_attention") == launched > 0, kind
+        assert same_launches and bytes_ok, kind
+        assert peak_rel <= DRYRUN_PEAK_RTOL, (kind, t_temp, real_temp)
+        launches[kind] = events
+
+    # d, first fault: a flash meta branch that reports half its bytes
+    cost = fa_ops.cost
+    fa_ops.cost = lambda *a, **k: (cost(*a, **k)[0], cost(*a, **k)[1] // 2)
+    try:
+        cell = steps.build_prefill_cell(
+            cfg, ShapeConfig("prefill", "prefill", DRYRUN_ONE["prefill"][1],
+                             DRYRUN_ONE["prefill"][0]), device="meta")
+        faulty = dryrun.trace_step(cell, dryrun.rank_inputs(cell))
+    finally:
+        fa_ops.cost = cost
+    caught = [e["bytes"] for e in faulty.of_kind("kernel")] != \
+        dryrun_kernel_bytes(launches["prefill"])
+    print(f"  planted fault, the flash meta branch reports half its bytes: "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    assert caught, "the kernel-bytes check misses a planted fault"
+
+
+def dryrun_rank(job: dict) -> dict:
+    """Phase 17c, one gloo rank of a (data 2, model 2) mesh on the card:
+    qwen3-0.6b's train step on its blocks under the op recorder."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import OpRecorder
+    from repro_torch.launch.mesh import make_host_mesh
+    rank, world = job["rank"], job["world"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    mesh = make_host_mesh(data=2, device="cuda", backend="gloo")
+    cell = steps.build_train_cell(get_config("qwen3-0.6b"), mesh_shape(),
+                                  steps.default_opt_cfg(), mesh=mesh)
+    inputs = cell.materialize(job["seed"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = OpRecorder()
+    rec.track(inputs)
+    t0 = time.perf_counter()
+    with rec:
+        cell.fn(*inputs)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "coord": list(mesh.coordinate()),
+           "collectives": rec.trace.collectives(),
+           "args": tensor_bytes(inputs),
+           "temp": torch.cuda.max_memory_allocated() - base,
+           "s": time.perf_counter() - t0}
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def dryrun_twin(job: dict) -> dict:
+    """Phase 17c's twin: each rank of the (2, 2) mesh traced on meta under
+    a fake group (and d's second fault: rank 0 again, one collective's
+    record dropped)."""
+    from repro_torch import _trace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("qwen3-0.6b")
+
+    def trace(rank):
+        dryrun.fake_group(job["world"], rank)
+        mesh = make_host_mesh(data=2, device="meta", backend="fake")
+        cell = steps.build_train_cell(cfg, mesh_shape(),
+                                      steps.default_opt_cfg(), mesh=mesh)
+        return dryrun.trace_step(cell, dryrun.rank_inputs(cell))
+    ranks = []
+    for r in range(job["world"]):
+        t = trace(r)
+        ranks.append({"collectives": t.collectives(), "args": t.argument_bytes,
+                      "temp": t.peak_bytes - t.argument_bytes,
+                      "s": t.seconds})
+    emit, dropped = _trace.emit, []
+
+    def drop_one(event):
+        if event["kind"] == "collective" and not dropped:
+            dropped.append(event)
+            return
+        emit(event)
+    _trace.emit = drop_one
+    try:
+        faulty = trace(0).collectives()
+    finally:
+        _trace.emit = emit
+    return {"ranks": ranks, "faulty0": faulty}
+
+
+def dryrun_mesh2d(seed: int) -> None:
+    """Phase 17c and d's second fault: four gloo ranks against their
+    twins."""
+    print(f"c. {MESH2D_RANKS} gloo ranks sharing the card, (data 2, model 2), "
+          f"qwen3-0.6b's train step (16 x 256), against the twin of each rank "
+          f"under a fake group:", flush=True)
+    store = ROOT / "build" / "dryrun_store"
+    store.unlink(missing_ok=True)
+    jobs = [{"kind": "dryrun_rank", "rank": r, "world": MESH2D_RANKS,
+             "store": str(store), "seed": seed + 17}
+            for r in range(MESH2D_RANKS)]
+    jobs.append({"kind": "dryrun_twin", "world": MESH2D_RANKS})
+    *ranks, twin = run_workers(jobs, [""] * len(jobs), "dryrun")
+    for r in ranks:
+        t = twin["ranks"][r["rank"]]
+        same = r["collectives"] == t["collectives"]
+        peak_rel = abs(t["temp"] - r["temp"]) / r["temp"]
+        kinds = sorted({op for op, _, _ in r["collectives"]})
+        print(f"  rank {r['rank']} at {tuple(r['coord'])}: "
+              f"{len(r['collectives'])} collectives ({', '.join(kinds)}; "
+              f"{sum(b for _, _, b in r['collectives']) / 1e9:.3f} GB of "
+              f"operands), the twin's {len(t['collectives'])}: equal in "
+              f"order {same}; arguments {r['args']:,} B, the twin's "
+              f"{t['args']:,} B; peak above the arguments "
+              f"{r['temp'] / 1e9:.3f} GB, the twin's "
+              f"{t['temp'] / 1e9:.3f} GB (relative "
+              f"{peak_rel:.2e}, limit {DRYRUN_PEAK_RTOL:g}); step under the "
+              f"recorder {r['s']:.1f} s, the twin's trace {t['s']:.1f} s",
+              flush=True)
+        assert same, (r["rank"], r["collectives"][:5], t["collectives"][:5])
+        assert r["args"] == t["args"], (r["rank"], r["args"], t["args"])
+        assert peak_rel <= DRYRUN_PEAK_RTOL, (r["rank"], r["temp"], t["temp"])
+    rank0 = next(r for r in ranks if r["rank"] == 0)
+    caught = twin["faulty0"] != rank0["collectives"]
+    print(f"d. planted fault, a twin that drops one collective's record: "
+          f"{len(twin['faulty0'])} against {len(rank0['collectives'])}, "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    assert caught, "the collectives check misses a planted fault"
+
+
+def dryrun_phase(seed: int, smi: str) -> None:
+    """Phase 17: the dry run against the card."""
+    phase("17. the dry run against the card")
+    t_phase = time.perf_counter()
+    sweep = start_dryrun_sweep()
+    try:
+        dryrun_one_card(seed)
+        dryrun_mesh2d(seed)
+        finish_dryrun_sweep(sweep, smi)
+    finally:
+        for _, p, _, _ in sweep:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4563,6 +4903,7 @@ def main() -> None:
     mesh_launches = mesh_phase(args.seed)
     mesh2d_row = mesh2d_phase(args.seed)
     mesh2d_ssm_rows = mesh2d_ssm_phase(args.seed)
+    dryrun_phase(args.seed, smi)
 
     phase("13. kernels")
     kernels = []

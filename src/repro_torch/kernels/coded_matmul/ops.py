@@ -63,6 +63,19 @@ def split_ranges(K: int, splits: int) -> List[Tuple[int, int]]:
     return list(zip(begins, begins[1:] + [K]))
 
 
+def cost(G: torch.Tensor, A: torch.Tensor, X: torch.Tensor):
+    """(operations, bytes) of one call: 2*k*M*K*N + 2*n*k*M*N operations
+    (the product with the k source blocks, then the encode); G, A and X
+    read once, C (n, M, N) written once.  The count behind the kernel's
+    ``bound_ms``."""
+    n, k = G.shape
+    _, M, K = A.shape
+    N = X.shape[1]
+    nbytes = G.numel() * G.element_size() + (A.numel() + X.numel()
+                                             + n * M * N) * A.element_size()
+    return 2.0 * k * M * K * N + 2.0 * n * k * M * N, nbytes
+
+
 def _check(G: torch.Tensor, A: torch.Tensor, X: torch.Tensor) -> None:
     if G.dim() != 2 or A.dim() != 3 or X.dim() != 2:
         raise ValueError(f"need G (n, k), A (k, M, K), X (K, N); got shapes "

@@ -1,17 +1,23 @@
 """Public wrapper for the flash attention forward.
 
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
-the Hopper kernel (``kernel.py``), after the checks below, or raises.
+the Hopper kernel (``kernel.py``), after the checks below, or raises.  A
+``meta`` tensor (the dry run, ``launch.dryrun``) gets the kernel's outputs
+as meta tensors after the same checks (none reads data), and never the
+plain version, whose (S x S) scores the kernel never writes.
 ``flash_attention_lse`` is the same launch that also writes the rows'
 log-sum-exp.  ``window`` > 0 keeps, under ``causal``, only the last
 ``window`` keys of each row (the reference's sliding window); without
 ``causal`` it is ignored, as in the reference.
-``flash_attention.launches`` counts the kernel launches of both.
+``flash_attention.launches`` counts the kernel launches of both; each
+launch, and each meta call in its place, reports ``cost``'s operations
+and bytes to the op recorder (``_trace``).
 """
 from __future__ import annotations
 
 import torch
 
+from ... import _trace
 from . import kernel
 from .ref import attention_lse_ref, attention_ref
 
@@ -20,6 +26,46 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 #: runs a window at another)
 WINDOW_HEAD_DIMS = (16, 32, 64, 128)
 _INT_MAX = 2 ** 31 - 1
+
+
+def kept_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> float:
+    """The (q, k) pairs a head keeps: all Sq * Sk without ``causal``; with
+    it, row i (at key position Sk - Sq + i) keeps min(pos + 1, window)
+    keys (every key up to its own without a window)."""
+    if not causal:
+        return float(sq * sk)
+
+    def upto(n: int) -> float:      # the rows at positions 0 .. n - 1
+        w = window if 0 < window < n else n
+        return w * (w + 1) / 2 + (n - w) * w
+
+    return upto(sk) - upto(sk - sq)
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+         window: int = 0, with_lse: bool = False):
+    """(operations, bytes) of one launch: 4 * B * H * D a kept pair (the
+    products q k^T and p v), and q, k, v read once, o (and the fp32 lse)
+    written once.  The count behind the kernels' ``bound_ms``."""
+    b, sq, h, d = q.shape
+    ops = 4.0 * b * h * kept_pairs(sq, k.shape[1], causal, window) * d
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    if with_lse:
+        nbytes += b * h * sq * 4
+    return ops, nbytes
+
+
+def _report(q, k, v, o, lse, causal: bool, window: int) -> None:
+    """One launch to the op recorder: ``cost``, and the shapes and dtypes
+    of the operands and the outputs."""
+    if _trace.sinks:
+        ops, nbytes = cost(q, k, causal, window, lse is not None)
+        tensors = [t for t in (q, k, v, o, lse) if t is not None]
+        _trace.emit({"kind": "kernel", "op": "flash_attention",
+                     "flops": ops, "bytes": nbytes,
+                     "dtype": str(q.dtype)[6:],
+                     "shapes": [list(t.shape) for t in tensors],
+                     "dtypes": [str(t.dtype)[6:] for t in tensors]})
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,8 +106,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
          with_lse: bool, window: int):
-    """(o, lse or None): the plain version for CPU tensors, else the
-    kernel after the checks, counted in ``flash_attention.launches``."""
+    """(o, lse or None): the plain version for CPU tensors, the kernel's
+    outputs on meta, else the kernel after the checks, counted in
+    ``flash_attention.launches``."""
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k and v must be on one device, got "
@@ -72,7 +119,7 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         if with_lse:
             return attention_lse_ref(q, k, v, causal, window)
         return attention_ref(q, k, v, causal, window), None
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, causal, window)
     o = torch.empty_like(q)
@@ -80,9 +127,11 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if with_lse:
         b, sq, h, _ = q.shape
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        kernel.launch(q, k, v, o, causal, lse, window)
-    flash_attention.launches += 1
+    if q.device.type == "cuda":
+        with torch.cuda.device(q.device):
+            kernel.launch(q, k, v, o, causal, lse, window)
+        flash_attention.launches += 1
+    _report(q, k, v, o, lse, causal, window)
     return o, lse
 
 
@@ -91,7 +140,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in ``q.dtype``.
 
     All three tensors on the CPU: the plain version.  All three on one CUDA
-    device: the kernel.  Anything else raises.
+    device: the kernel.  All three on meta: the kernel's output, unlaunched.
+    Anything else raises.
     """
     return _run(q, k, v, causal, False, window)[0]
 

@@ -37,6 +37,23 @@ def _workspace_fn():
     return fn
 
 
+def workspace_layout(b: int, s: int, h: int, p: int, n: int,
+                     chunk: int) -> int:
+    """``workspace_bytes`` without the built library (for the dry run on
+    meta): ``csrc/ssd_scan.cu``'s ``tc::layout``, each part rounded up to
+    256 bytes: G (B, nc, Qp, Qp) fp32, (l2, dt) (B, nc, H, Qp) float2,
+    the states (B, nc, H, P, N) fp32, Qp = the chunk rounded up to 16."""
+    if min(b, s, h, p, n, chunk) < 1 or s % chunk:
+        raise ValueError(f"no workspace for B={b} S={s} H={h} P={p} N={n} "
+                         f"chunk={chunk}")
+    nc, qp = s // chunk, (chunk + 15) // 16 * 16
+
+    def up(v: int) -> int:
+        return (v + 255) // 256 * 256
+    return (up(b * nc * qp * qp * 4) + up(b * nc * h * qp * 8)
+            + up(b * nc * h * p * n * 4))
+
+
 def workspace_bytes(b: int, s: int, h: int, p: int, n: int,
                     chunk: int) -> int:
     """Bytes of device memory the bf16 schedule needs as workspace: C B^T

@@ -23,7 +23,12 @@ A group of None (an axis of one rank) makes each of them the identity,
 with no autograd node.  The collectives are ``torch.distributed``'s own
 (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``)
 on NCCL and on gloo, CPU and CUDA tensors alike; ``calls`` counts them
-by (operation, backend).  A group whose backend lacks one raises.
+by (operation, backend).  A group whose backend lacks one raises.  Every
+collective passes through ``_count``, which also reports it to the op
+recorder (``_trace``): the reference's kind name (``all-reduce``,
+``all-gather``, ``reduce-scatter``), the operand's bytes (a rank's block
+for a gather, the whole input of a reduce-scatter, as the reference's HLO
+operands), its dtype, and the group's size and global ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from . import _trace
 
 #: collectives issued, by (operation, backend)
 calls: collections.Counter = collections.Counter()
@@ -52,14 +59,25 @@ def rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def _count(op: str, group) -> None:
+#: the reference's HLO name of each collective
+_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "reduce_scatter": "reduce-scatter"}
+
+
+def _count(op: str, group, x: torch.Tensor) -> None:
     calls[(op, dist.get_backend(group))] += 1
+    if _trace.sinks:
+        ranks = dist.get_process_group_ranks(group)
+        _trace.emit({"kind": "collective", "op": _KINDS[op],
+                     "bytes": x.numel() * x.element_size(),
+                     "dtype": str(x.dtype)[6:], "shapes": [list(x.shape)],
+                     "group_size": len(ranks), "ranks": ranks})
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``group`` in place (returned)."""
     if group is not None:
-        _count("all_reduce", group)
+        _count("all_reduce", group, x)
         dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -70,7 +88,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = size(group)
     if n == 1:
         return x
-    _count("all_gather", group)
+    _count("all_gather", group, x)
     front = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * front.shape[0],) + front.shape[1:],
                       dtype=x.dtype, device=x.device)
@@ -83,7 +101,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = size(group)
     if n == 1:
         return x
-    _count("reduce_scatter", group)
+    _count("reduce_scatter", group, x)
     front = x.movedim(dim, 0).contiguous()
     if front.shape[0] % n:
         raise ValueError(f"{front.shape[0]} rows do not split over {n} ranks")

@@ -113,12 +113,31 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert flash_attention.launches == before    # the count is for the kernel
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device that is neither the CPU, CUDA nor meta (shape
+    and dtype only: any operation on it raises)."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, dtype=t.dtype, device=torch.device("xla"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_wrapper_rejects_other_devices():
     q, k, v = _port(_inputs(1, 8, 8, 2, 1, 16, seed=2), "float32")
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        flash_attention(*map(_Elsewhere, (q, k, v)))
     with pytest.raises(ValueError, match="one device"):
         flash_attention(q, k.to("meta"), v)
+    # meta is the dry run's: the kernel's output, unlaunched
+    before = flash_attention.launches
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert flash_attention.launches == before
 
 
 def test_checks_reject_what_the_kernel_does_not_take():

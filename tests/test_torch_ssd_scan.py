@@ -126,12 +126,31 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert ssd_scan.launches == before     # the count is for the kernel
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device that is neither the CPU, CUDA nor meta (shape
+    and dtype only: any operation on it raises)."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, dtype=t.dtype, device=torch.device("xla"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_wrapper_rejects_other_devices():
     args = _port(_inputs(1, 16, 2, 16, 8, seed=2))
     with pytest.raises(ValueError, match="unsupported device"):
-        ssd_scan(*[a.to("meta") for a in args], chunk=8)
+        ssd_scan(*map(_Elsewhere, args), chunk=8)
     with pytest.raises(ValueError, match="one device"):
         ssd_scan(args[0], args[1].to("meta"), *args[2:], chunk=8)
+    # meta is the dry run's: y, unlaunched
+    before = ssd_scan.launches
+    y = ssd_scan(*[a.to("meta") for a in args], chunk=8)
+    assert y.device.type == "meta" and y.shape == args[0].shape
+    assert ssd_scan.launches == before
 
 
 def test_checks_reject_what_the_kernel_does_not_take():
