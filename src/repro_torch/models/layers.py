@@ -195,8 +195,12 @@ def rope_frequencies(head_dim: int, theta: float = 1e4,
     """Inverse frequencies (head_dim/2,) in fp32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    # a Python-float base: no host-to-device copy (and stream sync) per call
-    return 1.0 / torch.pow(theta, exps)
+    # theta ** exps in float64, rounded once to fp32 (the correctly rounded
+    # fp32 power, as the reference's eager ``theta ** exps``): fp32's pow
+    # misses it by a step at head dim 128, theta 1e6, and one step of a
+    # frequency is 0.03 rad of angle at position 524,287.  A Python-float
+    # base: no host-to-device copy (and stream sync) per call
+    return 1.0 / torch.pow(theta, exps.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
