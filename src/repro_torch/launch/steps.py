@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Callable, Optional, Tuple
 
@@ -73,6 +74,7 @@ from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config
 from ..models import api, frontends
 from ..models.layers import opt_enabled
 from ..models.params import dtype_of
+from ..obs import recorder as _trace
 from ..optim import adamw
 from ..runtime.coded_step import (CodedStepConfig, make_grad_step,
                                   make_train_step, weighted_loss_fn)
@@ -359,10 +361,11 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig,
 
 def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig,
                       device=None, mesh: Optional[Mesh] = None) -> Cell:
-    """One serve step: a new token with a KV (or SSM) cache of seq_len.
-    On a mesh the tokens and the logits are the rank's ``batch_spec``
-    rows, the cache its block (``Cell.materialize``), and the step runs on
-    the cache's rows (see the module doc)."""
+    """One serve step: a new token with a KV (or SSM) cache of seq_len,
+    in the span ``decode.step`` (its unit the cell's count of steps, its
+    field the position).  On a mesh the tokens and the logits are the
+    rank's ``batch_spec`` rows, the cache its block (``Cell.materialize``),
+    and the step runs on the cache's rows (see the module doc)."""
     b = shape.global_batch
     tok, rows = _batch_rows(mesh, b)
     if mesh is not None:
@@ -370,14 +373,18 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig,
         local_rows(mesh, held, b)       # raises where the cache's rows
         #                                 do not split (GSPMD refuses)
 
+    calls = itertools.count()
+
     @functools.partial(_placed, mesh)
     def serve_step(params, cache, tokens, pos):
-        if mesh is None:
-            return api.decode_step(cfg, params, cache, tokens, pos)
-        logits, cache = api.decode_step(
-            cfg, params, cache, _regroup(tokens, mesh, tok, held, b), pos,
-            _split(mesh, held))
-        return _regroup(logits, mesh, held, tok, b), cache
+        with _trace.span("decode.step", unit=next(calls),
+                         device=tokens.device, position=pos):
+            if mesh is None:
+                return api.decode_step(cfg, params, cache, tokens, pos)
+            logits, cache = api.decode_step(
+                cfg, params, cache, _regroup(tokens, mesh, tok, held, b),
+                pos, _split(mesh, held))
+            return _regroup(logits, mesh, held, tok, b), cache
 
     args = (api.param_shapes(cfg), api.cache_shapes(cfg, b, shape.seq_len),
             _token_specs(cfg, b, 1), _meta((), torch.int32))

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import parallel
 from ..kernels.flash_attention import flash_attention, flash_attention_lse
+from ..obs import recorder as _trace
 from ..sharding import P
 
 _NEG = -1e30
@@ -307,9 +308,9 @@ class FlashTrain(torch.autograd.Function):
     (``flash_attention_lse``), the plain version on the CPU; K/V keep
     their KV heads (the kernel reads them in place).  Saved: q, k, v, o and
     lse, O(S) of them.  Backward: ``_flash_train_bwd``, plain PyTorch as
-    the reference's is ``jnp`` (its Pallas kernel has no backward).  ``lse``
-    takes no gradient.  ``window`` > 0: the sliding window under
-    ``causal``, in both passes.
+    the reference's is ``jnp`` (its Pallas kernel has no backward), in the
+    span ``attn.flash_bwd``.  ``lse`` takes no gradient.  ``window`` > 0:
+    the sliding window under ``causal``, in both passes.
     """
 
     @staticmethod
@@ -324,8 +325,10 @@ class FlashTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_train_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                      ctx.block_kv, ctx.window)
+        with _trace.span("attn.flash_bwd", device=q.device):
+            dq, dk, dv = _flash_train_bwd(q, k, v, out, lse, dout,
+                                          ctx.causal, ctx.block_kv,
+                                          ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -336,9 +339,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype.
 
     The reference's branches: one query row (decode) is one dense fp32
-    pass over the keys; a full sequence without ``kv_len`` is the flash
-    kernel (``kernels/flash_attention``: the CUDA kernel on the card, its
-    plain version on the CPU), with q rows at key positions Sk - Sq + i —
+    pass over the keys (``_attend_row``, in the span ``attn.decode_row``);
+    a full sequence without ``kv_len`` is the flash kernel
+    (``kernels/flash_attention``: the CUDA kernel on the card, its plain
+    version on the CPU), with q rows at key positions Sk - Sq + i —
     through ``FlashTrain`` and its recompute backward when gradients are
     on and an input requires one (training), the forward alone otherwise
     (prefill); with ``kv_len`` it is the blockwise online softmax over
@@ -355,24 +359,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return FlashTrain.apply(q, k, v, causal, block_kv, window)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal, window)
+    if q_offset is None:
+        q_offset = sk - sq
+    if sq == 1:
+        with _trace.span("attn.decode_row", device=q.device):
+            return _attend_row(q, k, v, causal, q_offset, kv_len, window)
     n_rep = h // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(hd)
-    if q_offset is None:
-        q_offset = sk - sq
     q_pos = int(q_offset) + torch.arange(sq, device=q.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
-
-    if sq == 1:
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-        kpos = torch.arange(sk, device=q.device)
-        s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
-                        s, neg)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
-        return out.transpose(1, 2).to(q.dtype)
-
     block = min(block_kv, sk)
     q32 = q.float() * scale
     m = torch.full((b, h, sq), _NEG, dtype=torch.float32, device=q.device)
@@ -394,6 +391,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _attend_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, q_offset: int, kv_len: Optional[int],
+                window: int) -> torch.Tensor:
+    """``attention``'s one-query-row branch (decode): the KV heads
+    repeated to the query heads, then one dense fp32 pass over the keys
+    (scores, mask, softmax, p . v)."""
+    sk, hd = k.shape[1], q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    q_pos = int(q_offset) + torch.arange(1, device=q.device)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(hd)),
+                     k.float())
+    kpos = torch.arange(sk, device=q.device)
+    s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
+                    s, neg)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
     return out.transpose(1, 2).to(q.dtype)
 
 

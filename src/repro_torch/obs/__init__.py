@@ -5,7 +5,9 @@ monitor.
     event/span tracer with a bounded ring, a monotonic clock and a JSONL
     exporter; a near-zero-overhead no-op when disabled.  The cluster
     engines report each surface call to it as a ``sweep`` event that
-    names its device.
+    names its device; the train and decode steps time their parts in
+    spans, on the device's clock too (``recorder.SPANS`` reads their
+    totals by name).
   * :mod:`repro_torch.obs.metrics` — named counters / gauges / streaming
     histograms (Welford + reservoir, the host twin of
     ``runtime.streamstats``) in a process-global registry; the surface

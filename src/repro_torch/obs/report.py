@@ -1,8 +1,10 @@
 """Run reports from exported traces:  ``python -m repro_torch.obs.report
 trace.jsonl`` renders the run timeline — regime marks, drift alarms,
 every committed decision with its re-plan latency, cache hit rate,
-first-call costs per surface key, engine calls by device, SLO burn —
-from the JSONL flight-recorder export alone.
+first-call costs per surface key, engine calls by device, SLO burn,
+and per span name its host and device totals and self times (a span's
+duration less what its children cover) — from the JSONL flight-recorder
+export alone.
 
 The report is evidence, not narration: the decision log it reconstructs
 from ``commit`` events is bit-for-bit the controller's own event list
@@ -15,12 +17,13 @@ from __future__ import annotations
 import argparse
 import sys
 from collections import Counter as _TallyCounter
-from typing import Iterable, List, Sequence, Tuple
+from collections import defaultdict
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from .recorder import Event, parse_jsonl
 
 __all__ = ["decision_log", "decision_log_from_control_events",
-           "load_trace", "render_report"]
+           "load_trace", "render_report", "span_table"]
 
 
 def load_trace(path: str) -> List[Event]:
@@ -59,6 +62,54 @@ def decision_log_from_control_events(control_events) -> List[Tuple]:
 
 def _fmt_ms(seconds) -> str:
     return f"{seconds * 1e3:8.2f} ms"
+
+
+def _covered(lo: float, hi: float, parts: Iterable[Tuple[float, float]]
+             ) -> float:
+    """How much of [lo, hi] the union of ``parts`` covers."""
+    reach, total = lo, 0.0
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in parts):
+        if b > max(a, reach):
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def span_table(events: Iterable[Event]) -> Dict[str, dict]:
+    """Per span name: ``n``, ``max`` (host seconds), ``host`` and
+    ``host_self``, ``device`` and ``device_self`` (seconds; None where no
+    span of the name was timed on a device).  A span's self time is its
+    duration less the part of it that its children (the spans naming it
+    as their ``parent``) cover, on each clock."""
+    spans = [e for e in events if e.kind == "span"]
+    kids = defaultdict(list)
+    for e in spans:
+        if e.parent is not None:
+            kids[e.parent].append(e)
+    out: Dict[str, dict] = {}
+    for e in spans:
+        row = out.setdefault(e.name, {"n": 0, "max": 0.0, "host": 0.0,
+                                      "host_self": 0.0, "device": None,
+                                      "device_self": None})
+        dur = e.dur or 0.0
+        mine = kids.get(e.span_id, ()) if e.span_id is not None else ()
+        row["n"] += 1
+        row["max"] = max(row["max"], dur)
+        row["host"] += dur
+        row["host_self"] += dur - _covered(
+            e.ts, e.ts + dur, ((c.ts, c.ts + (c.dur or 0.0)) for c in mine))
+        if e.dev_start is not None:
+            dev_self = e.dev_dur - _covered(
+                e.dev_start, e.dev_end, ((c.dev_start, c.dev_end)
+                                         for c in mine
+                                         if c.dev_start is not None))
+            row["device"] = (row["device"] or 0.0) + e.dev_dur
+            row["device_self"] = (row["device_self"] or 0.0) + dev_self
+    return out
+
+
+def _fmt_opt_ms(seconds: Optional[float]) -> str:
+    return "       — ms" if seconds is None else _fmt_ms(seconds)
 
 
 def render_report(events: Sequence[Event]) -> str:
@@ -177,18 +228,15 @@ def render_report(events: Sequence[Event]) -> str:
             else:
                 w(f"  {name}: {len(sel)} calls{extra}")
 
-    spans = [e for e in events if e.kind == "span"]
-    if spans:
-        w("== spans " + "=" * 53)
-        agg = {}
-        for e in spans:
-            tot, mx, cnt = agg.get(e.name, (0.0, 0.0, 0))
-            agg[e.name] = (tot + (e.dur or 0.0),
-                           max(mx, e.dur or 0.0), cnt + 1)
-        for name in sorted(agg):
-            tot, mx, cnt = agg[name]
-            w(f"  {name:24s} n={cnt:<5d} total {_fmt_ms(tot)}  "
-              f"max {_fmt_ms(mx)}")
+    table = span_table(events)
+    if table:
+        w("== spans (host / device: total, self) " + "=" * 23)
+        for name in sorted(table):
+            r = table[name]
+            w(f"  {name:24s} n={r['n']:<5d} host {_fmt_ms(r['host'])} "
+              f"self {_fmt_ms(r['host_self'])}  device "
+              f"{_fmt_opt_ms(r['device'])} self "
+              f"{_fmt_opt_ms(r['device_self'])}  max {_fmt_ms(r['max'])}")
 
     if commits:
         w("== decision log " + "=" * 46)

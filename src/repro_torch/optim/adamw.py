@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..obs import recorder as _trace
 from ..sharding import P
 from ..models.params import dtype_of
 
@@ -158,37 +159,40 @@ def apply_updates(cfg: AdamWConfig, params: Params,
     ``metrics = {"grad_norm": 0-d tensor, "lr": float}``.  The parameters
     and the moments are updated in place; ``grads`` is read only.  On a
     mesh (``replicas``, ``group``: ``global_norm``'s) every tensor is the
-    rank's block."""
+    rank's block.  The global norm, the clip and the update are the span
+    ``optim.adamw``."""
     leaves = named(params)
-    gnorm = global_norm(grads, replicas, group)
-    scale = _clip_scale(gnorm, cfg.clip_norm)
-    step = state.step + 1
-    lr = schedule(cfg, step)
-    f32 = np.float32
-    b1, b2 = cfg.b1, cfg.b2
-    c1 = float(f32(1.0) - f32(b1) ** f32(step))
-    c2 = float(f32(1.0) - f32(b2) ** f32(step))
-    with torch.no_grad():
-        for name, p in leaves.items():
-            g = grads[name].reshape(-1)
-            p_all, m_all, v_all = (t.view(-1) for t in
-                                   (p, state.mu[name], state.nu[name]))
-            for lo in range(0, p_all.numel(), UPDATE_SLICE):
-                part = slice(lo, lo + UPDATE_SLICE)
-                p_, m, v = p_all[part], m_all[part], v_all[part]
-                g32 = (g[part].float() * scale).to(g.dtype).float()
-                m32, v32 = m.float(), v.float()  # the moments if fp32
-                m32.mul_(b1).add_(g32, alpha=1 - b1)
-                v32.mul_(b2).addcmul_(g32, g32, value=1 - b2)
-                p32 = p_.float()
-                delta = (m32 / c1).div_((v32 / c2).sqrt_().add_(cfg.eps))
-                delta.add_(p32, alpha=cfg.weight_decay)
-                p32.sub_(delta, alpha=lr)
-                for dst, src in ((p_, p32), (m, m32), (v, v32)):
-                    if dst is not src:
-                        dst.copy_(src)
-    return params, OptState(step, state.mu, state.nu), \
-        {"grad_norm": gnorm, "lr": lr}
+    with _trace.span("optim.adamw",
+                     device=next(iter(leaves.values())).device):
+        gnorm = global_norm(grads, replicas, group)
+        scale = _clip_scale(gnorm, cfg.clip_norm)
+        step = state.step + 1
+        lr = schedule(cfg, step)
+        f32 = np.float32
+        b1, b2 = cfg.b1, cfg.b2
+        c1 = float(f32(1.0) - f32(b1) ** f32(step))
+        c2 = float(f32(1.0) - f32(b2) ** f32(step))
+        with torch.no_grad():
+            for name, p in leaves.items():
+                g = grads[name].reshape(-1)
+                p_all, m_all, v_all = (t.view(-1) for t in
+                                       (p, state.mu[name], state.nu[name]))
+                for lo in range(0, p_all.numel(), UPDATE_SLICE):
+                    part = slice(lo, lo + UPDATE_SLICE)
+                    p_, m, v = p_all[part], m_all[part], v_all[part]
+                    g32 = (g[part].float() * scale).to(g.dtype).float()
+                    m32, v32 = m.float(), v.float()  # the moments if fp32
+                    m32.mul_(b1).add_(g32, alpha=1 - b1)
+                    v32.mul_(b2).addcmul_(g32, g32, value=1 - b2)
+                    p32 = p_.float()
+                    delta = (m32 / c1).div_((v32 / c2).sqrt_().add_(cfg.eps))
+                    delta.add_(p32, alpha=cfg.weight_decay)
+                    p32.sub_(delta, alpha=lr)
+                    for dst, src in ((p_, p32), (m, m32), (v, v32)):
+                        if dst is not src:
+                            dst.copy_(src)
+        return params, OptState(step, state.mu, state.nu), \
+            {"grad_norm": gnorm, "lr": lr}
 
 
 def accumulate_grads(loss_fn: Callable, params: Params,

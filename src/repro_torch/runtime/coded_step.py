@@ -32,6 +32,7 @@ from ..data.pipeline import (DataConfig, coded_batch, decode_example_weights,
                              expand_worker_weights)
 from ..models import api
 from ..models.layers import cross_entropy_loss
+from ..obs import recorder as _trace
 from ..optim import adamw
 
 
@@ -90,10 +91,14 @@ def weighted_loss_fn(cfg: ModelConfig, split=None) -> Callable:
 
 def _value_and_grad(loss: Callable, params, *args):
     """(loss, {name: grad}) of ``loss(params, *args)`` over every
-    parameter of ``params`` (a module, or a dictionary of tensors)."""
+    parameter of ``params`` (a module, or a dictionary of tensors): the
+    forward, its remat recompute and the backward, in the span
+    ``train.forward_backward``."""
     leaves = adamw.named(params)
-    lval = loss(params, *args)
-    grads = torch.autograd.grad(lval, list(leaves.values()))
+    device = next(iter(leaves.values())).device
+    with _trace.span("train.forward_backward", device=device):
+        lval = loss(params, *args)
+        grads = torch.autograd.grad(lval, list(leaves.values()))
     return lval.detach(), dict(zip(leaves, grads))
 
 
@@ -275,10 +280,24 @@ class CodedTrainer:
         return alive
 
     def run_step(self, params, opt_state, step: int):
-        toks, labs = coded_batch(self.data_cfg, step, self.step_cfg.code)
-        alive = self.gather_alive(step)
-        a = self.decode_coefficients(alive)
+        """One coded step, in the span ``coded.step`` (its unit the step
+        index): the host's coded batch, straggler mask, decode
+        coefficients and their copies to the device, then ``step_fn``.
+        The copies are from pageable memory, so each synchronises the
+        stream: ``coded.to_device``'s host time holds the device work
+        queued before it."""
         dev = _device_of(params)
-        as_tensor = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
-        return self.step_fn(params, opt_state, as_tensor(toks),
-                            as_tensor(labs), as_tensor(a))
+        rows = self.step_cfg.coded_batch_rows
+        with _trace.span("coded.step", unit=step, device=dev, rows=rows,
+                         tokens=rows * self.data_cfg.seq_len):
+            with _trace.span("coded.batch"):
+                toks, labs = coded_batch(self.data_cfg, step,
+                                         self.step_cfg.code)
+            with _trace.span("coded.mask"):
+                alive = self.gather_alive(step)
+            with _trace.span("coded.coefficients"):
+                a = self.decode_coefficients(alive)
+            with _trace.span("coded.to_device"):
+                toks, labs, a = (torch.from_numpy(x).to(dev)
+                                 for x in (toks, labs, a))
+            return self.step_fn(params, opt_state, toks, labs, a)
