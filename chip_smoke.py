@@ -7,7 +7,8 @@ Phases, none of whose failures is caught (any fault exits non-zero):
 1. Device: require CUDA, print the card's name and power limit, turn TF32
    off for matrix products and convolutions.
 2. Build: compile every kernel from its CUDA sources (one nvcc per
-   kernel, all at once): coded_matmul, flash_attention, ssd_scan.
+   kernel, all at once): coded_matmul, decode_attention, flash_attention,
+   ssd_scan.
 3. Kernel against plain version on the card, each with the kernel's, the
    plain version's and (where one exists) one PyTorch call's times beside
    the least time the card could take, the achieved rate (TFLOP/s or
@@ -299,8 +300,12 @@ Phases, none of whose failures is caught (any fault exits non-zero):
       versions in one-head slices, phase 3's planted faults at each;
    2-3. decode_32k at B 8 and long_500k at B 1, at position seq_len - 1
       over a cache drawn from N(0, 1) (zamba2's ring slot 524287 mod
-      4096): DEEP_DECODE_STEPS timed steps, one profiled, and the fp32
-      step at batch 1 on the card against the host within ZOO_HOST_TOL;
+      4096): DEEP_DECODE_STEPS timed steps, one profiled, the
+      decode-attention kernel's launches counted over each (one an
+      attention layer a step: 28 for qwen3-0.6b), one step with the
+      one-row branch's plain version in its place (its peak, for 5), and
+      the fp32 step at batch 1 on the card against the host within
+      ZOO_HOST_TOL;
    4. train_4k at the most of DEEP_TRAIN_ROWS whose peak the twin puts
       under NEW_TRAIN_MEM_GB: 3 steps of one repeated batch (each step's
       launches exactly, a falling finite loss, the median warm step, the
@@ -310,11 +315,27 @@ Phases, none of whose failures is caught (any fault exits non-zero):
       long_500k (arguments and launches exactly, the peak above the
       arguments within 10 %, the prefill's aten FLOPs within 1 %), the
       scan's workspace layout at this phase's shapes, and each decode
-      step beside the twin's t_memory.
+      step beside the twin's t_memory.  The dry run traces the one-row
+      branch's plain version on meta, so qwen3-0.6b's decode_32k twin is
+      held to the card's step with that plain version, and a second twin,
+      traced with the decode-attention kernel's output in place of the
+      plain pass, to the card's step as it runs.
+19. Decode attention at the decode shapes (run after 17 and before 18):
+    ``kernels/decode_attention`` against its plain version on card
+    tensors at qwen3-0.6b's decode_32k (B 8, 32,768 keys, H 16, KV 8, D
+    128, bf16, positions 32,640 and 32,767), at GQA 16 (qwen3-moe's H 64
+    over KV 4) and over zamba2's ring (H = KV = 32, D 64, not causal):
+    with bf16 q within a bf16 rounding and with fp32 q within
+    DECODE_ATTN_TOL, where two planted faults (the softmax scale halved,
+    the first split's keys dropped) must fail; the kernel's, the plain
+    version's and SDPA's (``enable_gqa``) times in turns beside the byte
+    bound; the peak above the arguments of both; the wrapper's host time
+    a call beside one aten add's.  Three rows of the kernels line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -702,10 +723,11 @@ DEEP_TRAIN_ROWS, DEEP_TRAIN_STEPS = (16, 8, 4, 2), 3
 DEEP_PREFILL = {"qwen3-0.6b": 4096, "mamba2-1.3b": 4096,
                 "zamba2-1.2b": 8192, "hubert-xlarge": 0}
 DEEP_PREFILL_LAUNCHES = {
-    "qwen3-0.6b": dict(flash_attention=28, ssd_scan=0),
-    "mamba2-1.3b": dict(flash_attention=0, ssd_scan=48),
-    "zamba2-1.2b": dict(flash_attention=6, ssd_scan=38),
-    "hubert-xlarge": dict(flash_attention=48, ssd_scan=0)}
+    "qwen3-0.6b": dict(flash_attention=28, ssd_scan=0, decode_attention=0),
+    "mamba2-1.3b": dict(flash_attention=0, ssd_scan=48, decode_attention=0),
+    "zamba2-1.2b": dict(flash_attention=6, ssd_scan=38, decode_attention=0),
+    "hubert-xlarge": dict(flash_attention=48, ssd_scan=0,
+                          decode_attention=0)}
 # the kernels at the prefill shapes against their plain versions (one-head
 # slices), phase 3's tolerances and planted faults: (arch, (B, Sq, Sk, H,
 # KV, D), causal, window, fault, source); qwen3-moe-235b-a22b's GQA 16
@@ -729,11 +751,34 @@ DEEP_SSD = {"mamba2-1.3b": (2, 32768, 64, 64, 128),
 DEEP_DECODE = {"decode_32k": ("qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b"),
                "long_500k": ("mamba2-1.3b", "zamba2-1.2b")}
 DEEP_DECODE_STEPS = 10
+# phase 19: (label, (B, Sk, H, KV, D), causal, positions, launched by):
+# the positions checked (the last is timed; kv_len the position + 1, the
+# whole ring where not causal), and the run whose launches the row counts
+DECODE_ATTN_SHAPES = [
+    ("qwen3-0.6b decode_32k", (8, 32768, 16, 8, 128), True, (32640, 32767),
+     ("qwen3-0.6b", "decode_32k")),
+    ("qwen3-moe-235b-a22b's heads at decode_32k", (8, 32768, 64, 4, 128),
+     True, (32767,), ("qwen3-moe-235b-a22b", "zoo decode")),
+    ("zamba2-1.2b's ring at decode_32k", (8, 4096, 32, 32, 64), False,
+     (524287,), ("zamba2-1.2b", "decode_32k"))]
+# (atol, rtol) by q's dtype: both sides sum in fp32, in other orders, and
+# round the output once to q's dtype (one bf16 step apart at most)
+DECODE_ATTN_TOL = {torch.float32: (1e-5, 1e-5),
+                   torch.bfloat16: (1e-5, 2.0 ** -7)}
+DECODE_ATTN_HOST_CALLS = 200
+DECODE_REPLACES = ("none: the reference's one-row branch "
+                   "(src/repro/models/layers.py::attention, sq == 1) is jnp")
+DECODE_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
+                 "decode_attention.cu")
+# the twins traced with the decode-attention kernel's output on meta
+DEEP_KERNEL_TWINS = [("qwen3-0.6b", "decode_32k")]
 DEEP_TRAIN = ("qwen3-0.6b", "mamba2-1.3b", "zamba2-1.2b")
 # a train step's launches under remat "full" (phases 9 and 10's counts)
 DEEP_TRAIN_LAUNCHES = {
-    "qwen3-0.6b": dict(flash_attention=TRAIN_LAUNCHES_PER_STEP, ssd_scan=0),
-    **SSM_TRAIN}
+    arch: dict(launches, decode_attention=0) for arch, launches in {
+        "qwen3-0.6b": dict(flash_attention=TRAIN_LAUNCHES_PER_STEP,
+                           ssd_scan=0),
+        **SSM_TRAIN}.items()}
 # the twin against the card (phase 17's rules) for qwen3-0.6b's runs and
 # mamba2-1.3b's long_500k; aten FLOPs for the prefill only
 DEEP_TWINS = [("qwen3-0.6b", "prefill_32k")]
@@ -3033,9 +3078,12 @@ def zoo_moe_checks(cfg, model, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def zoo_serve(cfg, model, gen) -> None:
+def zoo_serve(cfg, model, gen) -> int:
     """The hedged serving loop at the reference's defaults, and one decode
-    step of its shape timed, as phase 5 runs them."""
+    step of its shape timed, as phase 5 runs them.  Returns the
+    decode-attention kernel's launches over the timed steps (one a layer
+    a step, asserted)."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.launch import serve
     from repro_torch.models import api
     dist = serve.parse_dist("pareto:0.05:1.8")
@@ -3052,12 +3100,17 @@ def zoo_serve(cfg, model, gen) -> None:
     print(f"  greedy tokens, row 0: {res.tokens[0].tolist()}")
     cache = api.init_cache(cfg, 4, 64, dtype="float32", device="cuda")
     tok = prompt[:, :1]
+    decode_attention.launches = 0
     _, cache = api.decode_step(cfg, model, cache, tok, 0)
     step_ms = time_ms(lambda: api.decode_step(cfg, model, cache, tok, 1),
                       reps=10)
+    launched = decode_attention.launches
+    assert launched == 12 * cfg.num_layers, (cfg.name, launched)
     print(f"  decode step (batch 4, position 1, {cfg.compute_dtype}): "
-          f"{step_ms:.3f} ms a step (CUDA events, 10 steps)", flush=True)
+          f"{step_ms:.3f} ms a step (CUDA events, 10 steps); decode-attention "
+          f"launches {launched} over 12 steps", flush=True)
     del cache
+    return launched
 
 
 def zoo_host_check(gen) -> None:
@@ -3090,7 +3143,9 @@ def zoo_host_check(gen) -> None:
 
 def zoo_phase(seed: int) -> dict:
     """Phase 11: the rest of the zoo at full width.  Returns the flash
-    kernel's launches over each model's bf16 prefills."""
+    kernel's launches over each model's bf16 prefills, and under (ZOO_MOE,
+    "zoo decode") the decode-attention kernel's over its timed decode
+    steps."""
     from repro_torch.models import frontends, moe
     phase("11. the rest of the zoo at full width")
     t_phase = time.perf_counter()
@@ -3114,7 +3169,7 @@ def zoo_phase(seed: int) -> dict:
     launches[ZOO_MOE] = zoo_prefill(cfg, model, toks, ZOO_MOE,
                                     moe_op_groups(cfg))
     del toks
-    zoo_serve(cfg, model, gen)
+    launches[(ZOO_MOE, "zoo decode")] = zoo_serve(cfg, model, gen)
     del model
     torch.cuda.empty_cache()
 
@@ -5057,25 +5112,59 @@ def deep_rows(job: dict) -> dict:
                        f"{DEEP_TRAIN_ROWS}: {tried}")
 
 
+@contextlib.contextmanager
+def decode_attention_as(fn):
+    """``models.layers.attention``'s one-row branch through ``fn`` (the
+    decode-attention wrapper's arguments) for the duration."""
+    from repro_torch.models import layers
+    kept = layers.decode_attention
+    layers.decode_attention = fn
+    try:
+        yield
+    finally:
+        layers.decode_attention = kept
+
+
+def plain_decode_attention(q, k, v, causal, q_offset, kv_len, window):
+    """The one-row branch's plain version on any device: the program the
+    dry run traces on meta."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    return decode_attention_ref(q, k, v, causal, q_offset, kv_len, window)
+
+
+def kernel_output_on_meta(q, k, v, causal, q_offset, kv_len, window):
+    """What the decode-attention kernel allocates a call, unlaunched: its
+    output (the splits' scratch is one buffer, made by the first call)."""
+    return torch.empty_like(q.contiguous())
+
+
 def deep_twins(job: dict) -> dict:
     """Phase 18's twin worker for the prefill and decode cells: every
-    (arch, cell) of DEEP_TWINS and of the decode runs."""
+    (arch, cell) of DEEP_TWINS and of the decode runs, and DEEP_KERNEL_TWINS
+    again with the kernel's output in place of the one-row branch's plain
+    pass (under "<arch> <cell> kernel")."""
     cells = list(DEEP_TWINS) + [(a, n) for n, archs in DEEP_DECODE.items()
                                 for a in archs]
-    return {f"{a} {n}": deep_twin_trace(a, n)
-            for a, n in dict.fromkeys(cells)}
+    twins = {f"{a} {n}": deep_twin_trace(a, n)
+             for a, n in dict.fromkeys(cells)}
+    with decode_attention_as(kernel_output_on_meta):
+        for a, n in DEEP_KERNEL_TWINS:
+            twins[f"{a} {n} kernel"] = deep_twin_trace(a, n)
+    return twins
 
 
 def deep_measure(fn) -> tuple:
     """(result, ms, launches by kernel, bytes allocated above the baseline
     at the peak) of one call of ``fn`` (CUDA events; the launch counts
     zeroed first)."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = ssd_scan.launches = 0
+    decode_attention.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -5083,7 +5172,8 @@ def deep_measure(fn) -> tuple:
     end.record()
     torch.cuda.synchronize()
     launched = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+                "ssd_scan": ssd_scan.launches,
+                "decode_attention": decode_attention.launches}
     return (out, start.elapsed_time(end), launched,
             torch.cuda.max_memory_allocated() - base)
 
@@ -5280,9 +5370,13 @@ def tree_map(fn, tree, *rest):
 def deep_decode(arch: str, name: str, seed: int) -> dict:
     """Phase 18.2-3, one model: the bf16 decode cell at position
     seq_len - 1 over a cache drawn from a seeded generator: one step, then
-    DEEP_DECODE_STEPS timed (CUDA events) and one under the profiler; then
-    the step in fp32 at batch 1 on the card against the host."""
+    DEEP_DECODE_STEPS timed (CUDA events), the decode-attention kernel's
+    launches counted (one an attention layer a step), one step with the
+    one-row branch's plain version (its peak, for the twin) and one under
+    the profiler; then the step in fp32 at batch 1 on the card against
+    the host."""
     from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.models import api
     t0 = time.perf_counter()
     cell = deep_cell(arch, name)
@@ -5300,14 +5394,25 @@ def deep_decode(arch: str, name: str, seed: int) -> dict:
     assert logits.shape == (b, 1, api.padded_vocab(cfg))
     assert torch.isfinite(logits.float()).all()
     del out, logits
+    per_step = DEEP_PREFILL_LAUNCHES[arch]["flash_attention"]
+    assert run["launches"]["decode_attention"] == per_step, \
+        (arch, name, run["launches"])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    decode_attention.launches = 0
     start.record()
     for _ in range(DEEP_DECODE_STEPS):
         cell.fn(params, cache, tok, pos)
     end.record()
     torch.cuda.synchronize()
+    assert decode_attention.launches == per_step * DEEP_DECODE_STEPS, \
+        (arch, name, decode_attention.launches)
+    run["attn_launches"] = per_step * (2 + DEEP_DECODE_STEPS)
     run["ms"] = start.elapsed_time(end) / DEEP_DECODE_STEPS
+    with decode_attention_as(plain_decode_attention):
+        _, _, plain_launched, run["plain_temp"] = deep_measure(
+            lambda: cell.fn(params, cache, tok, pos))
+    assert plain_launched["decode_attention"] == 0, plain_launched
     ring = ""
     if "attn_k" in cache:
         wlen = cache["attn_k"].shape[2]
@@ -5317,7 +5422,10 @@ def deep_decode(arch: str, name: str, seed: int) -> dict:
           f"drawn from N(0, 1); step "
           f"{run['ms']:.3f} ms ({DEEP_DECODE_STEPS} steps, CUDA events) = "
           f"{b / run['ms'] * 1e3:.1f} tokens/s; peak {run['temp'] / 1e9:.3f} "
-          f"GB above the arguments' {run['args'] / 1e9:.3f} GB", flush=True)
+          f"GB above the arguments' {run['args'] / 1e9:.3f} GB "
+          f"({run['plain_temp'] / 1e9:.3f} GB with the one-row branch's "
+          f"plain version); decode-attention launches {per_step} a step",
+          flush=True)
     prof = profile_call(f"{arch} {name} step",
                         lambda: cell.fn(params, cache, tok, pos))
     if prof is not None:
@@ -5407,6 +5515,8 @@ def deep_twin_check(label: str, card: dict, twin: dict,
     DRYRUN_FLOPS_RTOL of FlopCounterMode's."""
     launched = card["launches"][-1] if isinstance(card["launches"], list) \
         else card["launches"]
+    # the twin counts the kernels that launch on meta too
+    launched = {k: launched[k] for k in twin["launches"]}
     peak_rel = abs(twin["temp"] - card["temp"]) / card["temp"]
     line = (f"  {label}: arguments twin {twin['args']:,} B, card "
             f"{card['args']:,} B; launches twin {twin['launches']}, card "
@@ -5427,9 +5537,10 @@ def deep_twin_check(label: str, card: dict, twin: dict,
                                           card["flops"])
 
 
-def deep_phase(seed: int, smi: str) -> list:
+def deep_phase(seed: int, smi: str) -> tuple:
     """Phase 18: the production shape cells on one card.  Returns the
-    kernels-line rows of the new shapes."""
+    kernels-line rows of the new shapes, and the decode-attention kernel's
+    launches in each decode run by (arch, cell)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     phase("18. the production shape cells on one card")
@@ -5539,9 +5650,13 @@ def deep_phase(seed: int, smi: str) -> list:
               flush=True)
         deep_twin_check("qwen3-0.6b prefill_32k", prefill["qwen3-0.6b"],
                         twins["qwen3-0.6b prefill_32k"], flops=True)
-        deep_twin_check("qwen3-0.6b decode_32k",
-                        decode[("qwen3-0.6b", "decode_32k")],
+        card = decode[("qwen3-0.6b", "decode_32k")]
+        deep_twin_check("qwen3-0.6b decode_32k, the one-row branch's plain "
+                        "version on both", dict(card, temp=card["plain_temp"]),
                         twins["qwen3-0.6b decode_32k"])
+        deep_twin_check("qwen3-0.6b decode_32k, the decode-attention "
+                        "kernel's output on meta", card,
+                        twins["qwen3-0.6b decode_32k kernel"])
         deep_twin_check("mamba2-1.3b long_500k",
                         decode[("mamba2-1.3b", "long_500k")],
                         twins["mamba2-1.3b long_500k"])
@@ -5563,6 +5678,144 @@ def deep_phase(seed: int, smi: str) -> list:
                 p.kill()
                 p.wait()
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, {key: run["attn_launches"] for key, run in decode.items()}
+
+
+def decode_attention_peak(fn) -> int:
+    """Bytes allocated above the baseline at the peak of one call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def decode_attention_host_us(fn) -> float:
+    """Host microseconds a call of ``fn`` over DECODE_ATTN_HOST_CALLS calls
+    issued back to back (the card keeps up: nothing waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_ATTN_HOST_CALLS):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / DECODE_ATTN_HOST_CALLS * 1e6
+
+
+def decode_attention_phase(seed: int) -> list:
+    """Phase 19: the decode-attention kernel against its plain version on
+    card tensors at DECODE_ATTN_SHAPES, timed beside it and SDPA; planted
+    faults at the first shape; the wrapper's host time a call.  Returns
+    the kernels-line rows (their launches are counted by phases 11 and
+    18, under each shape's ``launched by``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.decode_attention import ops as dops
+    phase("19. decode attention at the decode shapes")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for i, (label, (B, Sk, H, KV, D), causal, positions, by) in enumerate(
+            DECODE_ATTN_SHAPES):
+        # q's values in bf16, scaled so that the scores spread over units
+        q32 = (torch.randn((B, 1, H, D), generator=gen, device="cuda")
+               * 2.0).bfloat16().float()
+        q16 = q32.bfloat16()
+        k = torch.randn((B, Sk, KV, D), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, Sk, KV, D), generator=gen,
+                        device="cuda").bfloat16()
+        worst, max_abs = {}, 0.0
+        for pos in positions:
+            kv = pos + 1 if causal else Sk
+            for q in (q16, q32):
+                before = decode_attention.launches
+                out = decode_attention(q, k, v, causal, pos, kv)
+                ref = decode_attention_ref(q, k, v, causal, pos, kv, 0)
+                torch.cuda.synchronize()
+                assert decode_attention.launches == before + 1
+                assert out.shape == ref.shape and out.dtype == ref.dtype \
+                    == q.dtype
+                assert torch.isfinite(out.float()).all()
+                e = excess(out, ref, *DECODE_ATTN_TOL[q.dtype])
+                name = str(q.dtype)[6:]
+                worst[name] = max(worst.get(name, 0.0), e)
+                if q.dtype == torch.bfloat16:
+                    max_abs = max(max_abs, float(
+                        (out.float() - ref.float()).abs().max()))
+        ok = max(worst.values()) <= 1
+        lo, hi = dops.kept_range(Sk, causal, pos, kv)
+        chunk, nsplit = dops.split_plan(hi - lo, B * KV, sms)
+        print(f"  {label}: B={B} Sk={Sk} H={H} KV={KV} D={D} "
+              f"{'causal' if causal else 'not causal'} at positions "
+              f"{list(positions)}, {nsplit} splits of {chunk} keys: "
+              f"|out-ref| / limit bf16 q {worst['bfloat16']:.3f} (tol "
+              f"{DECODE_ATTN_TOL[torch.bfloat16][0]:g} abs + 2^-7 rel), "
+              f"fp32 q {worst['float32']:.3f} (tol "
+              f"{DECODE_ATTN_TOL[torch.float32][0]:g} abs + "
+              f"{DECODE_ATTN_TOL[torch.float32][1]:g} rel)  "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        assert ok, (label, worst)
+        if i == 0:
+            ref = decode_attention_ref(q32, k, v, causal, pos, kv, 0)
+            faults = {
+                "softmax scale x0.5":
+                    decode_attention_ref(q32 * 0.5, k, v, causal, pos, kv, 0),
+                f"the first split's keys [0, {chunk}) dropped":
+                    decode_attention_ref(q32, k[:, chunk:], v[:, chunk:],
+                                         causal, pos - chunk, kv - chunk, 0)}
+            for fault, bad in faults.items():
+                e = excess(bad, ref, *DECODE_ATTN_TOL[torch.float32])
+                print(f"    planted fault, {fault}: max |out-ref| / limit = "
+                      f"{e:.3g}  {'caught' if e > 1 else 'MISSED'}",
+                      flush=True)
+                assert e > 1, f"the tolerance misses a planted fault: {fault}"
+            del ref, faults, bad
+        del out
+        # the last position, where nothing is masked: SDPA is the same
+        # function
+        assert kv == Sk and (not causal or pos == Sk - 1)
+        fns = {"plain": lambda: decode_attention_ref(q16, k, v, causal, pos,
+                                                     kv, 0),
+               "kernel": lambda: decode_attention(q16, k, v, causal, pos, kv),
+               "library": lambda: F.scaled_dot_product_attention(
+                   q16.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   enable_gqa=True)}
+        t = timed_turns(fns, ["plain", "kernel", "library", "library",
+                              "kernel", "plain"],
+                        {"plain": 3, "kernel": 50, "library": 50})
+        ops_, nbytes = dops.cost(q16, k, lo, hi)
+        b_ms, b_by = roofline(nbytes, ops_, torch.float32)
+        mem = {n: decode_attention_peak(fns[n]) for n in ("kernel", "plain")}
+        print(f"    kernel {t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  "
+              f"sdpa {t['library']:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+              f"{rate(t['kernel'], nbytes, ops_, b_ms, b_by)}); peak above "
+              f"the arguments: kernel {mem['kernel'] / 1e6:.3f} MB, plain "
+              f"{mem['plain'] / 1e9:.3f} GB", flush=True)
+        rows.append(dict(
+            name=f"decode_attention[{label} B={B},Sk={Sk},H={H},KV={KV},"
+                 f"D={D},bf16,{'causal' if causal else 'not causal'}]",
+            source=DECODE_SOURCE, replaces=DECODE_REPLACES, launched_by=by,
+            max_abs_err=max_abs, ms=t["kernel"], plain_ms=t["plain"],
+            library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+        del q32, q16, k, v, fns
+        torch.cuda.empty_cache()
+    # the wrapper's host cost: a decode step is issued by the host
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((8, 1, 16, 128), (8, 512, 8, 128),
+                             (8, 512, 8, 128)))
+    wrapper = decode_attention_host_us(
+        lambda: decode_attention(q, k, v, True, 500, 501))
+    add = decode_attention_host_us(lambda: torch.add(q, q))
+    print(f"  the wrapper's host time a call (B 8, 512 keys, "
+          f"{DECODE_ATTN_HOST_CALLS} calls): {wrapper:.1f} us; one aten add "
+          f"{add:.1f} us", flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
 
@@ -5598,7 +5851,10 @@ def main() -> None:
         dryrun_phase(args.seed, smi, sweep)
     finally:
         stop_dryrun_sweep(sweep)
-    deep_kernel_rows = deep_phase(args.seed, smi)
+    decode_rows = decode_attention_phase(args.seed)
+    deep_kernel_rows, decode_launches = deep_phase(args.seed, smi)
+    decode_launches.update({k: n for k, n in zoo_launches.items()
+                            if isinstance(k, tuple)})
 
     phase("13. kernels")
     kernels = []
@@ -5683,7 +5939,9 @@ def main() -> None:
         **{k: mesh2d_row[k] for k in ("launches", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}})
-    for row in mesh2d_ssm_rows + deep_kernel_rows:
+    for row in decode_rows:
+        row["launches"] = decode_launches[row["launched_by"]]
+    for row in mesh2d_ssm_rows + deep_kernel_rows + decode_rows:
         kernels.append({"name": row["name"], "route": "cuda",
                         **{k: row[k] for k in (
                             "source", "replaces", "launches", "max_abs_err",

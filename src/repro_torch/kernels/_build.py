@@ -26,7 +26,8 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 
 #: kernel name -> its source directory
 SOURCES = {name: _KERNELS_DIR / name / "csrc"
-           for name in ("coded_matmul", "flash_attention", "ssd_scan")}
+           for name in ("coded_matmul", "decode_attention", "flash_attention",
+                        "ssd_scan")}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

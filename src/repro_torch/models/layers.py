@@ -2,11 +2,11 @@
 ``models/layers.py``).
 
 RMSNorm in fp32, rotary embeddings with the half-split convention, the
-branches of ``attention`` (one-token decode, full sequence through the
-flash kernel, the same with its recompute backward when gradients are
-taken, blockwise over a cache with a valid prefix), SwiGLU, the token
-cross-entropy, and the initialisers with the reference's laws drawn from a
-``torch.Generator``.
+branches of ``attention`` (one-token decode through the decode-attention
+kernel, full sequence through the flash kernel, the same with its
+recompute backward when gradients are taken, blockwise over a cache with
+a valid prefix), SwiGLU, the token cross-entropy, and the initialisers
+with the reference's laws drawn from a ``torch.Generator``.
 
 The reference's ``REPRO_OPT`` switches are read once, at import
 (``opt_enabled``): ``norm_vjp`` (``rms_norm`` through a hand-written
@@ -35,9 +35,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import parallel
+from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention, flash_attention_lse
 from ..obs import recorder as _trace
 from ..sharding import P
+from ._attn_mask import key_mask, repeat_kv
 
 _NEG = -1e30
 
@@ -223,23 +225,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # --------------------------------------------------------------------------
 
-def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    """(B, S, KV, hd) -> (B, S, KV * n_rep, hd) by head repetition (GQA)."""
-    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
-
-
-def _mask(q_pos, kpos, causal: bool, kv_len, window: int = 0) -> torch.Tensor:
-    mask = torch.ones((q_pos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                      device=kpos.device)
-    if causal:
-        mask &= q_pos[:, None] >= kpos[None, :]
-        if window > 0:
-            mask &= q_pos[:, None] - kpos[None, :] < window
-    if kv_len is not None:
-        mask &= kpos[None, :] < kv_len
-    return mask
-
-
 def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int,
                      window: int = 0):
     """(dq, dk, dv) of the full-sequence attention: the reference's
@@ -261,8 +246,8 @@ def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int,
     q32 = q.float()
     do32 = dout.float()
     delta = torch.einsum("bqhd,bqhd->bhq", do32, out.float())   # (B, H, Sq)
-    kr = _repeat_kv(k, n_rep)
-    vr = _repeat_kv(v, n_rep)
+    kr = repeat_kv(k, n_rep)
+    vr = repeat_kv(v, n_rep)
     q_pos = (sk - sq) + torch.arange(sq, device=q.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
     dq = torch.zeros_like(q32)
@@ -276,8 +261,8 @@ def _flash_train_bwd(q, k, v, out, lse, dout, causal: bool, block_kv: int,
         kpos = start + torch.arange(kblk.shape[1], device=q.device)
         s = torch.einsum("bqhd,bkhd->bhqk", q32 * scale, kblk.float())
         if causal:
-            s = torch.where(_mask(q_pos, kpos, True, None, window)[None, None],
-                            s, neg)
+            keep = key_mask(q_pos, kpos, True, None, window)
+            s = torch.where(keep[None, None], s, neg)
         dp = torch.einsum("bqhd,bkhd->bhqk", do32, vblk.float())
         rows = slice(start, start + block)
         if probs16:
@@ -338,8 +323,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype.
 
-    The reference's branches: one query row (decode) is one dense fp32
-    pass over the keys (``_attend_row``, in the span ``attn.decode_row``);
+    The reference's branches: one query row (decode) is one fp32 pass
+    over the keys it keeps (``kernels/decode_attention``, in the span
+    ``attn.decode_row``: the split-KV kernel on the card, reading the
+    cache in place; on the CPU and meta its plain version, the reference's
+    dense pass over the repeated and widened cache);
     a full sequence without ``kv_len`` is the flash kernel
     (``kernels/flash_attention``: the CUDA kernel on the card, its plain
     version on the CPU), with q rows at key positions Sk - Sq + i —
@@ -363,10 +351,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offset = sk - sq
     if sq == 1:
         with _trace.span("attn.decode_row", device=q.device):
-            return _attend_row(q, k, v, causal, q_offset, kv_len, window)
+            return decode_attention(q, k, v, causal, int(q_offset), kv_len,
+                                    window)
     n_rep = h // k.shape[2]
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(hd)
     q_pos = int(q_offset) + torch.arange(sq, device=q.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
@@ -382,8 +371,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vblk = v[:, start:start + block].float()
         kpos = start + torch.arange(kblk.shape[1], device=q.device)
         s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk)
-        s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
-                        s, neg)
+        keep = key_mask(q_pos, kpos, causal, kv_len, window)
+        s = torch.where(keep[None, None], s, neg)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -391,28 +380,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.transpose(1, 2).to(q.dtype)
-
-
-def _attend_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, q_offset: int, kv_len: Optional[int],
-                window: int) -> torch.Tensor:
-    """``attention``'s one-query-row branch (decode): the KV heads
-    repeated to the query heads, then one dense fp32 pass over the keys
-    (scores, mask, softmax, p . v)."""
-    sk, hd = k.shape[1], q.shape[-1]
-    n_rep = q.shape[2] // k.shape[2]
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
-    q_pos = int(q_offset) + torch.arange(1, device=q.device)
-    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(hd)),
-                     k.float())
-    kpos = torch.arange(sk, device=q.device)
-    s = torch.where(_mask(q_pos, kpos, causal, kv_len, window)[None, None],
-                    s, neg)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -432,8 +399,8 @@ def attention_split_hd(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     b, sq, h, hd = q.shape
     sk = kc.shape[1]
     n_rep = h // kc.shape[2]
-    k = _repeat_kv(kc, n_rep)
-    v = _repeat_kv(vc, n_rep)
+    k = repeat_kv(kc, n_rep)
+    v = repeat_kv(vc, n_rep)
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqhd,bkhd->bhqk", (q.float() * scale)[..., cols],
                      k.float())
@@ -441,7 +408,7 @@ def attention_split_hd(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     q_pos = int(q_offset) + torch.arange(sq, device=q.device)
     kpos = torch.arange(sk, device=q.device)
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
-    s = torch.where(_mask(q_pos, kpos, True, kv_len)[None, None], s, neg)
+    s = torch.where(key_mask(q_pos, kpos, True, kv_len)[None, None], s, neg)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return parallel.gather_model(out, 3, group).to(q.dtype)
