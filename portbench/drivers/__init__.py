@@ -7,6 +7,9 @@ window into its end-to-end metrics.
 A driver module has ``KIND`` (what its per-layer metrics test for),
 ``SYNC_EACH`` (the harness waits for each unit before the next; False:
 the host stays one unit ahead), ``end_to_end(window) -> {metric: value}``
+(``window.device_s_per_unit``: the device's busy time a unit over
+profiled stretches of the mix's ``profiled_units`` units once the window
+has closed, where the mix names them)
 and ``Session(cell, seed, device)`` with ``build()`` (the program, its
 weights and inputs), ``warm()`` (the cell's shapes, once each),
 ``work_per_unit`` (tokens), ``unit(remaining) -> value or None`` (one
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
-from typing import List
+from typing import List, Optional
 
 
 @dataclasses.dataclass
@@ -32,6 +35,7 @@ class Window:
     work: float             # tokens they carried
     seconds: float          # host clock, start to the last completion
     gaps: List[float]       # device clock between consecutive completions
+    device_s_per_unit: Optional[float] = None   # harness.device_time
 
     def rate(self) -> float:
         return self.work / self.seconds

@@ -18,7 +18,7 @@ import torch
 
 from .. import weights
 from ..reference import compare, serve
-from ..spec import program_config, spec_of
+from ..spec import program_config
 from ..timing import sync
 
 KIND = "decode"
@@ -27,14 +27,20 @@ MAX_STEPS = 1 << 20
 
 
 def end_to_end(win) -> dict:
-    return {"decode_tokens_per_s": win.rate(),
-            "decode_step_p90_ms": win.gap_quantile_ms(90)}
+    """The device's busy time a step, over profiled stretches of the mix's
+    ``profiled_units`` steps once the window has closed: the step's cost
+    on the card, which the host's issue speed does not change.  The
+    window's own rate and gaps, which the host paces, are the per-layer
+    ``wall_*.decode``."""
+    if win.device_s_per_unit is None:
+        return {}
+    return {"decode_device_ms_per_step": win.device_s_per_unit * 1e3}
 
 
 class Session:
     def __init__(self, cell, seed: int, device: torch.device):
         self.cell, self.seed, self.device = cell, seed, device
-        self.mix, self.spec = cell.mix, spec_of(cell.config)
+        self.mix, self.spec = cell.mix, cell.spec
         self.n = 0
 
     @property
@@ -46,7 +52,7 @@ class Session:
         from repro_torch.launch import steps
         from repro_torch.models import api
         mix, spec = self.mix, self.spec
-        pcfg = program_config(self.cell.config)
+        pcfg = program_config(self.cell.config, self.cell.root)
         b, s = mix["batch"], mix["cache_len"]
         self.cell_fn = steps.build_decode_cell(
             pcfg, ShapeConfig("decode", "decode", s, b),

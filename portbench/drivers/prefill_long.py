@@ -13,7 +13,7 @@ import torch
 
 from .. import weights
 from ..reference import compare, serve
-from ..spec import program_config, spec_of
+from ..spec import program_config
 from ..timing import sync
 
 KIND = "prefill"
@@ -27,7 +27,7 @@ def end_to_end(win) -> dict:
 class Session:
     def __init__(self, cell, seed: int, device: torch.device):
         self.cell, self.seed, self.device = cell, seed, device
-        self.mix, self.spec = cell.mix, spec_of(cell.config)
+        self.mix, self.spec = cell.mix, cell.spec
         self.n = 0
         self.out = None
 
@@ -40,7 +40,7 @@ class Session:
         from repro_torch.launch import steps
         from repro_torch.models import api
         mix = self.mix
-        pcfg = program_config(self.cell.config)
+        pcfg = program_config(self.cell.config, self.cell.root)
         self.cell_fn = steps.build_prefill_cell(
             pcfg, ShapeConfig("prefill", "prefill", mix["seq_len"],
                               mix["batch"]), device=self.device).fn

@@ -28,7 +28,7 @@ import torch
 
 from .. import weights
 from ..reference import compare, train as ref_train
-from ..spec import program_config, spec_of
+from ..spec import program_config
 from ..timing import sync
 
 KIND = "train"
@@ -50,7 +50,7 @@ def alive_mask(mix: dict, seed: int, step: int) -> np.ndarray:
 class Session:
     def __init__(self, cell, seed: int, device: torch.device):
         self.cell, self.seed, self.device = cell, seed, device
-        self.mix, self.spec = cell.mix, spec_of(cell.config)
+        self.mix, self.spec = cell.mix, cell.spec
         self.step = 0
         self.step_s = None          # host seconds of the newest step
         self.snap = None            # the state before a step, on the card
@@ -74,7 +74,7 @@ class Session:
         from repro_torch.runtime.coded_step import (CodedStepConfig,
                                                     CodedTrainer)
         mix, spec = self.mix, self.spec
-        pcfg = program_config(self.cell.config)
+        pcfg = program_config(self.cell.config, self.cell.root)
         self.model = api.build(pcfg, self.device, trainable=True)
         weights.fill(self.model, spec, self.seed)
         opt_cfg = adamw.AdamWConfig(**mix["optimizer"])

@@ -2,7 +2,8 @@
 stretch, the check against the reference, and the result line.
 
 Everything a cell names is found by name under the benchmark's root:
-the configuration file ``BENCHMARK.json`` gives, ``portbench/traffic/
+the configuration file ``BENCHMARK.json`` gives and its model family
+(``portbench/families/<family>.py``), ``portbench/traffic/
 <traffic>.json``, the driver of the mix's ``kind`` (``portbench/drivers/
 <kind>.py``), ``portbench/limits/<cell>.json`` and, for a traced run, each
 per-layer metric's reader ``portbench/metrics/<name>.py``, with the
@@ -18,14 +19,14 @@ import math
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from . import timing
 from .drivers import Window
 from .faults import planted
-from .spec import Spec, spec_of
+from .spec import Spec, by_name, spec_of
 
 
 @dataclasses.dataclass
@@ -35,10 +36,11 @@ class Cell:
     mix: dict
     limits: Dict[str, float]
     chips: int
+    root: Path
 
     @property
     def spec(self) -> Spec:
-        return spec_of(self.config)
+        return spec_of(self.config, self.root)
 
 
 def load_cell(root: Path, bench: dict, name: str) -> Cell:
@@ -51,19 +53,12 @@ def load_cell(root: Path, bench: dict, name: str) -> Cell:
                       / f"{entry['traffic']}.json").read_text())
     limits = json.loads((root / "portbench" / "limits"
                          / f"{name}.json").read_text())
-    return Cell(name, config, mix, limits["limits"], entry["chips"])
+    return Cell(name, config, mix, limits["limits"], entry["chips"], root)
 
 
 def driver(root: Path, kind: str):
     """The driver of a traffic kind: ``portbench/drivers/<kind>.py``."""
-    name = f"portbench.drivers.{kind}"
-    if name not in sys.modules:
-        path = root / "portbench" / "drivers" / f"{kind}.py"
-        spec = importlib.util.spec_from_file_location(name, path)
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-    return sys.modules[name]
+    return by_name(root, "drivers", kind)
 
 
 def reader(root: Path, metric: str):
@@ -90,7 +85,9 @@ class TraceContext:
     """What a per-layer metric's reader reads: the cell's kind and sizes,
     the units of work in the traced stretch and what the driver says of
     them, the profiler's trace and the counters the readers name, each
-    as it moved over the stretch."""
+    as it moved over the stretch; where the mix names ``paced_units``,
+    that many units run untraced, as the window runs them, just before
+    the traced stretch."""
     kind: str
     spec: Spec
     mix: dict
@@ -98,6 +95,7 @@ class TraceContext:
     info: dict
     trace: timing.Trace
     counters: Dict[str, int]
+    paced: Optional[Window] = None
 
 
 @dataclasses.dataclass
@@ -117,24 +115,27 @@ def _metric(value: float, unit: str) -> dict:
     return {"value": value, "unit": unit}
 
 
-def window(session, sync_each: bool, seconds: float,
-           device: torch.device) -> Window:
+def window(session, sync_each: bool, seconds: Optional[float],
+           device: torch.device, units: Optional[int] = None) -> Window:
     """Units back to back until the first completes at or after
-    ``seconds`` (and at least two, so that there is a gap): all the work
-    over all the window's time, and the device clock's gaps between
-    consecutive completions."""
+    ``seconds`` (or, with ``units``, until that many have run; at least
+    two, so that there is a gap): all the work over all the window's time,
+    and the device clock's gaps between consecutive completions."""
     marks = timing.Marks(device)
     marks.mark()
     t0 = time.perf_counter()
     values = []
     while True:
-        values.append(session.unit(seconds - (time.perf_counter() - t0)))
+        values.append(session.unit(
+            None if units else seconds - (time.perf_counter() - t0)))
         marks.mark()
         if sync_each:
             timing.sync(device)
         else:
             marks.wait_previous()
-        if time.perf_counter() - t0 >= seconds and len(values) >= 2:
+        done = len(values) >= units if units else \
+            time.perf_counter() - t0 >= seconds
+        if done and len(values) >= 2:
             break
     timing.sync(device)
     elapsed = time.perf_counter() - t0
@@ -145,6 +146,26 @@ def window(session, sync_each: bool, seconds: float,
                   elapsed, [b - a for a, b in zip(times, times[1:])])
 
 
+def device_time(session, units: int, device: torch.device,
+                tries: int = 4) -> float:
+    """The device's busy time a unit, once the window has closed:
+    stretches of ``units`` units profiled one after another until two
+    count the same number of device operations, and the mean of those
+    two.  The profiler's trace loses some tens of a decode stretch's
+    ~45,000 operations now and then (its collecting thread falls behind),
+    and a stretch that lost some reads low; two that count alike lost
+    none.  With no two alike after ``tries``, the stretch with the most."""
+    seen = {}
+    for _ in range(tries):
+        busy_s, ops = timing.busy(lambda: session.run_units(units), device)
+        if ops in seen:
+            return (busy_s + seen[ops]) / (2 * units)
+        seen[ops] = busy_s
+    print(f"device time: no two of {tries} stretches counted alike "
+          f"({sorted(seen)} operations); the most", file=sys.stderr)
+    return seen[max(seen)] / units
+
+
 def traced(root: Path, bench: dict, cell: Cell, mod, session,
            device: torch.device) -> tuple:
     """(metrics, device readings, breakdown) of a profiled stretch of
@@ -153,6 +174,10 @@ def traced(root: Path, bench: dict, cell: Cell, mod, session,
                for m in bench["per_layer"] if _applies(m, cell.name)}
     paths = {k: p for _, r in readers.values()
              for k, p in getattr(r, "COUNTERS", {}).items()}
+    paced = None
+    if cell.mix.get("paced_units"):
+        paced = window(session, mod.SYNC_EACH, None, device,
+                       units=cell.mix["paced_units"])
     before = {k: read_counter(p) for k, p in paths.items()}
     box = {}
 
@@ -164,7 +189,7 @@ def traced(root: Path, bench: dict, cell: Cell, mod, session,
     ctx = TraceContext(mod.KIND, cell.spec, cell.mix,
                        cell.mix["trace_units"], box["info"], tr,
                        {k: read_counter(p) - before[k]
-                        for k, p in paths.items()})
+                        for k, p in paths.items()}, paced)
     metrics = {}
     for name, (m, r) in readers.items():
         value = r.read(ctx)
@@ -212,6 +237,9 @@ def run(root: Path, bench: dict, name: str, seed: int, seconds: float,
     else:
         win = window(session, mod.SYNC_EACH, seconds, device)
         attempted, failed = win.units, win.failed
+        if cell.mix.get("profiled_units"):
+            win.device_s_per_unit = device_time(
+                session, cell.mix["profiled_units"], device)
         g = sorted(win.gaps)
         print(f"window: {win.units} units in {win.seconds:.3f} s; a unit "
               f"{g[0]:.4f} / {g[len(g) // 2]:.4f} / {g[-1]:.4f} s (least "

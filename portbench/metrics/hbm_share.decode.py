@@ -6,7 +6,7 @@ from portbench import counts, timing
 
 def read(ctx):
     if not ctx.trace.on_device or ctx.kind != "decode" \
-            or ctx.spec.family != "dense":
+            or counts.decode_bytes(ctx.spec, 1, 0) is None:
         return None
     nbytes = sum(counts.decode_bytes(ctx.spec, ctx.info["rows"], p)
                  for p in ctx.info["positions"])

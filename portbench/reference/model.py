@@ -1,18 +1,16 @@
-"""The models' forward passes in plain fp32 PyTorch.
+"""The models' shared pieces in plain fp32 PyTorch, and the forward
+passes by family.
 
 Parameters are a dictionary by dotted name (``weights.param_shapes``'
-layout).  The dense decoder (qwen3): pre-norm RMSNorm, q/k/v projections,
-per-head RMSNorm of q and k (qk-norm), rotary embedding on the half-split
-pairs, causal grouped-query attention, the output projection, SwiGLU, a
-final RMSNorm and the head.  The hybrid (zamba2): Mamba2 layers (RMSNorm;
-z, x, B, C, dt projections; a width-4 depthwise causal convolution and
-SiLU on x, B and C; dt = softplus(dt_raw + dt_bias), A = -exp(A_log); the
-SSD recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = C_t h_t
-computed in chunks; y + D x; RMSNorm of y * silu(z); the out projection)
-and after every ``attn_every``-th of them one shared attention + MLP
-block, a dense decoder layer without qk-norm whose attention keeps the
-last ``window`` keys.  Everything is computed for the rows given; the
-callers loop over rows and blocks so that the full sizes fit.
+layout, the layers' leaves ``layers.<name>`` stacked along a leading
+layer axis).  The library: RMSNorm, rotary embedding on the half-split
+pairs, causal grouped-query attention (optionally within a window), a
+projection, the depthwise causal convolution, the SSD recurrence in
+chunks, the head and the token cross-entropy.  Each family's module
+(``portbench/families/``) builds its forward from them; ``hidden`` and
+``decode_over_prefix`` run the one of the spec's family.  Everything is
+computed for the rows given; the callers loop over rows and blocks so
+that the full sizes fit.
 """
 from __future__ import annotations
 
@@ -23,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..spec import Spec
+from ..spec import Spec, family_of
 from .numerics import Numerics
 
 Params = Dict[str, torch.Tensor]
@@ -80,31 +78,6 @@ def _proj(num: Numerics, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def qkv(spec: Spec, num: Numerics, lp: Params, x: torch.Tensor,
-        pos: torch.Tensor):
-    h = rms(x, lp["attn_norm"], spec.eps)
-    q, k, v = (_proj(num, h, lp[n]) for n in ("wq", "wk", "wv"))
-    if spec.qk_norm:
-        q, k = rms(q, lp["q_norm"], spec.eps), rms(k, lp["k_norm"], spec.eps)
-    return rope(q, pos, spec.rope_theta), rope(k, pos, spec.rope_theta), v
-
-
-def attn_out_and_mlp(spec: Spec, num: Numerics, lp: Params, x: torch.Tensor,
-                     att: torch.Tensor) -> torch.Tensor:
-    x = x + _proj(num, att.flatten(-2), lp["wo"].flatten(0, 1))
-    h = rms(x, lp["mlp_norm"], spec.eps)
-    g, u = _proj(num, h, lp["w_gate"]), _proj(num, h, lp["w_up"])
-    return x + _proj(num, F.silu(g) * u, lp["w_down"])
-
-
-def decoder_layer(spec: Spec, num: Numerics, lp: Params, x: torch.Tensor,
-                  window: int = 0) -> torch.Tensor:
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k, v = qkv(spec, num, lp, x, pos)
-    return attn_out_and_mlp(spec, num, lp, x,
-                            attend(num, q, k, v, pos, pos, window))
-
-
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal convolution: y_t = sum_i w_i x_{t - K + 1 + i}."""
     k = w.shape[0]
@@ -145,66 +118,22 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     return (y + torch.stack(inter, dim=1)).reshape(b, s, h, p)
 
 
-def mamba_layer(spec: Spec, num: Numerics, lp: Params,
-                x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
-    hh, p = spec.ssm_heads, spec.ssm_head_dim
-    h = rms(x, lp["norm"], spec.eps)
-    z, xin, Braw, Craw, dtraw = (_proj(num, h, lp[n]) for n in
-                                 ("wz", "wx", "wB", "wC", "wdt"))
-    xc = F.silu(causal_conv(xin, lp["conv_x"]))
-    Bc = F.silu(causal_conv(Braw, lp["conv_B"]))
-    Cc = F.silu(causal_conv(Craw, lp["conv_C"]))
-    dt = torch.logaddexp(dtraw + lp["dt_bias"],
-                         torch.zeros((), device=x.device))
-    A = -torch.exp(lp["A_log"])
-    chunk = min(spec.ssm_chunk, s)
-    pad = (-s) % chunk
-    xh = xc.reshape(b, s, hh, p)
-    if pad:
-        y = ssd(F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
-                F.pad(Bc, (0, 0, 0, pad)), F.pad(Cc, (0, 0, 0, pad)),
-                chunk)[:, :s]
-    else:
-        y = ssd(xh, dt, A, Bc, Cc, chunk)
-    y = (y + xh * lp["D"][:, None]).reshape(b, s, -1)
-    y = rms(y * F.silu(z), lp["gate_norm"], spec.eps)
-    return x + _proj(num, y, lp["out_proj"])
-
-
 def layer_params(P: Params, i: int) -> Params:
     return {n[len("layers."):]: t[i] for n, t in P.items()
             if n.startswith("layers.")}
 
 
-def shared_params(P: Params) -> Params:
-    return {n[len("shared_attn."):]: t for n, t in P.items()
-            if n.startswith("shared_attn.")}
+def run_layer(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``; where ``remat``, recomputed in the backward."""
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
 
 
 def hidden(spec: Spec, num: Numerics, P: Params, tokens: torch.Tensor,
            remat: bool = False) -> torch.Tensor:
-    """The final-normed hidden states (B, S, d) of ``tokens`` (B, S);
-    ``remat``: each layer recomputed in the backward."""
-    def run(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if remat \
-            else fn(*args)
-
-    x = P["embed"][tokens]
-    if spec.family == "dense":
-        for i in range(spec.layers):
-            x = run(lambda x, i=i: decoder_layer(spec, num, layer_params(P, i),
-                                                 x), x)
-    else:
-        sp = shared_params(P)
-        for i in range(spec.layers):
-            x = run(lambda x, i=i: mamba_layer(spec, num, layer_params(P, i),
-                                               x), x)
-            if spec.attn_every and (i + 1) % spec.attn_every == 0 \
-                    and (i + 1) // spec.attn_every <= spec.sites:
-                x = run(lambda x: decoder_layer(spec, num, sp, x,
-                                                spec.window), x)
-    return rms(x, P["final_norm"], spec.eps)
+    """The final-normed hidden states (B, S, d) of ``tokens`` (B, S), by
+    the spec's family; ``remat``: each layer recomputed in the
+    backward."""
+    return family_of(spec).hidden(spec, num, P, tokens, remat)
 
 
 def logits(num: Numerics, P: Params, h: torch.Tensor) -> torch.Tensor:
@@ -214,27 +143,12 @@ def logits(num: Numerics, P: Params, h: torch.Tensor) -> torch.Tensor:
 def decode_over_prefix(spec: Spec, num: Numerics, P: Params,
                        tokens: torch.Tensor, p_lo: int, prefix_kv,
                        ) -> tuple:
-    """The dense decoder fed ``tokens`` (B, T) at positions p_lo .. p_lo +
-    T - 1 after a cache prefix: ``prefix_kv(layer)`` gives that layer's
-    (k, v) at positions 0 .. p_lo - 1, (B, p_lo, KV, hd).  Returns (final
-    hidden (B, T, d), k and v written at the T positions, each (L, B, T,
-    KV, hd))."""
-    t = tokens.shape[1]
-    pos = p_lo + torch.arange(t, device=tokens.device)
-    k_pos = torch.arange(p_lo + t, device=tokens.device)
-    x = P["embed"][tokens]
-    ks, vs = [], []
-    for i in range(spec.layers):
-        lp = layer_params(P, i)
-        q, k, v = qkv(spec, num, lp, x, pos)
-        pk, pv = prefix_kv(i)
-        att = attend(num, q, torch.cat([pk.float(), k], 1),
-                     torch.cat([pv.float(), v], 1), pos, k_pos)
-        x = attn_out_and_mlp(spec, num, lp, x, att)
-        ks.append(k)
-        vs.append(v)
-        del pk, pv
-    return rms(x, P["final_norm"], spec.eps), torch.stack(ks), torch.stack(vs)
+    """The spec's family fed ``tokens`` (B, T) at positions p_lo .. p_lo +
+    T - 1 after a KV cache prefix: ``prefix_kv(layer)`` gives that layer's
+    (k, v) at positions 0 .. p_lo - 1.  Returns (final hidden (B, T, d),
+    k and v written at the T positions)."""
+    return family_of(spec).decode_over_prefix(spec, num, P, tokens, p_lo,
+                                              prefix_kv)
 
 
 def token_nll(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,8 @@ POS_BLOCK = 2048
 @torch.no_grad()
 def decode(spec: Spec, P, tokens: torch.Tensor, p_lo: int,
            prefix_kv: Callable, precision: str = "fp32"):
-    """(logits (B, T, V) fp32, k and v at the T positions) of the dense
-    decoder fed ``tokens`` after the cache prefix."""
+    """(logits (B, T, V) fp32, k and v at the T positions) of the spec's
+    family fed ``tokens`` after the KV cache prefix."""
     num = Numerics(precision)
     h, k, v = decode_over_prefix(spec, num, P, tokens, p_lo, prefix_kv)
     return logits(num, P, h), k, v

@@ -33,6 +33,10 @@ FIXTURE_CELLS = {
     ("tiny-dense", "tiny_decode"): {"token_gap": 0.1, "cache_err": 0.05},
     ("tiny-hybrid", "tiny_prefill"): {"token_gap": 0.3, "logit_err": 0.08},
     ("tiny-dense", "tiny_score"): {"score_gap": 0.0011},
+    ("tiny-ssm", "tiny_train"): {"loss_gap": 0.002, "grad_gap": 0.03,
+                                 "change_gap": 0.01, "last_grad_gap": 0.03,
+                                 "last_change_gap": 0.002},
+    ("tiny-ssm", "tiny_prefill"): {"token_gap": 0.18, "logit_err": 0.08},
 }
 
 
@@ -47,7 +51,7 @@ def make_root(tmp: Path) -> Path:
     shutil.copytree(REPO / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    for kind in ("configs", "traffic", "metrics", "drivers"):
+    for kind in ("configs", "traffic", "metrics", "drivers", "families"):
         for f in (FIXTURES / kind).iterdir():
             shutil.copy(f, root / "portbench" / kind / f.name)
     for f in (FIXTURES / "configs").iterdir():

@@ -32,7 +32,10 @@ FAULTS = [(cell_name("tiny-dense", "tiny_train"), "frozen"),
           (cell_name("tiny-hybrid", "tiny_train"), "frozen"),
           (cell_name("tiny-hybrid", "tiny_train"), "half_batch"),
           (cell_name("tiny-dense", "tiny_decode"), "altered_token"),
-          (cell_name("tiny-hybrid", "tiny_prefill"), "altered_token")]
+          (cell_name("tiny-hybrid", "tiny_prefill"), "altered_token"),
+          (cell_name("tiny-ssm", "tiny_train"), "frozen"),
+          (cell_name("tiny-ssm", "tiny_train"), "half_batch"),
+          (cell_name("tiny-ssm", "tiny_prefill"), "altered_token")]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS)

@@ -8,7 +8,7 @@ events.  Peaks: NVIDIA's H100 SXM data sheet at 700 W, dense rates.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -108,6 +108,27 @@ def profile(fn: Callable[[], None], device: torch.device) -> Optional[Trace]:
         return None
     kernels.sort(key=lambda k: -k[1])
     return Trace(span_s, kernels, idle_gaps(prof.events(), DeviceType))
+
+
+def busy(fn: Callable[[], None], device: torch.device) -> Tuple[float, int]:
+    """(seconds, operations): the time of every device operation of ``fn``
+    once, and their count, summed from the raw events of ``torch.profiler``
+    with device activity alone, as ``profile`` traces it but with no table
+    by name.  On the CPU (the tests), where the CPU is the device, the host
+    clock's span and no operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0, 0
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return sum(e.end_ns() - e.start_ns() for e in ops) / 1e9, len(ops)
 
 
 def idle_gaps(events, DeviceType, top: int = 10) -> List[tuple]:

@@ -3,13 +3,15 @@
 Every leaf has a generator of its own, seeded from (seed, leaf name), so
 each is one call on the card and can be drawn again alone: the reference
 draws the same values leaf by leaf after the program's state is freed.
-The leaves are the port's checkpoint layout (``layers.<name>`` stacked
-along a leading layer axis), which ``fill`` checks name by name and shape
-by shape against the program's module.  The laws are the usual ones:
-norms, D and the gated norm 1, fan-in normal weights, a 0.02 normal
-embedding, A = -exp(A_log) with A_log = log U[1, 16), dt_bias the inverse
-softplus of U[1e-3, 1e-1).  The masters are fp32, as the configuration
-holds them.
+The leaves are the port's checkpoint layout as the configuration's
+family gives it (``layers.<name>`` stacked along a leading layer axis),
+which ``fill`` checks name by name and shape by shape against the
+program's module.  The laws are the usual ones, by a leaf's role: norms,
+D and the gated norm 1, A = -exp(A_log) with A_log = log U[1, 16),
+dt_bias the inverse softplus of U[1e-3, 1e-1), a 0.02 normal embedding,
+and otherwise normal weights over the square root of the fan-in the
+family gives; a family may give a law of its own for a role of its own.
+The masters are fp32, as the configuration holds them.
 """
 from __future__ import annotations
 
@@ -19,54 +21,25 @@ from typing import Dict, Tuple
 
 import torch
 
-from .spec import Spec
+from .spec import Spec, family_of
 
 Shapes = Dict[str, Tuple[int, ...]]
 
 
-def _dense_layers(s: Spec) -> Shapes:
-    L, d, h, kv, hd, f = (s.layers, s.d, s.heads, s.kv_heads, s.head_dim,
-                          s.d_ff)
-    out = {"attn_norm": (L, d), "wq": (L, d, h, hd), "wk": (L, d, kv, hd),
-           "wv": (L, d, kv, hd), "wo": (L, h, hd, d), "mlp_norm": (L, d)}
-    if s.qk_norm:
-        out.update(q_norm=(L, hd), k_norm=(L, hd))
-    out.update(w_gate=(L, d, f), w_up=(L, d, f), w_down=(L, f, d))
+def decoder_layout(s: Spec, layer: Shapes) -> Shapes:
+    """The layout of a stack of ``s.layers`` layers of leaves ``layer``:
+    the embedding table, the layers' leaves stacked, the final norm and
+    the head."""
+    v, d = s.vocab_pad, s.d
+    out: Shapes = {"embed": (v, d)}
+    out.update({f"layers.{n}": (s.layers,) + sh for n, sh in layer.items()})
+    out.update(final_norm=(d,), lm_head=(d, v))
     return out
-
-
-def _mamba_layers(s: Spec) -> Shapes:
-    L, d, di, h, n, k = (s.layers, s.d, s.d_inner, s.ssm_heads, s.ssm_state,
-                         s.conv_k)
-    return {"norm": (L, d), "wz": (L, d, di), "wx": (L, d, di),
-            "wB": (L, d, n), "wC": (L, d, n), "wdt": (L, d, h),
-            "conv_x": (L, k, di), "conv_B": (L, k, n), "conv_C": (L, k, n),
-            "A_log": (L, h), "D": (L, h), "dt_bias": (L, h),
-            "gate_norm": (L, di), "out_proj": (L, di, d)}
 
 
 def param_shapes(s: Spec) -> Shapes:
     """Every leaf's shape by dotted name."""
-    v, d = s.vocab_pad, s.d
-    out: Shapes = {"embed": (v, d)}
-    layers = _dense_layers(s) if s.family == "dense" else _mamba_layers(s)
-    out.update({f"layers.{n}": sh for n, sh in layers.items()})
-    out.update(final_norm=(d,), lm_head=(d, v))
-    if s.family == "hybrid" and s.sites:
-        h, kv, hd, f = s.heads, s.kv_heads, s.head_dim, s.d_ff
-        out.update({
-            "shared_attn.attn_norm": (d,), "shared_attn.wq": (d, h, hd),
-            "shared_attn.wk": (d, kv, hd), "shared_attn.wv": (d, kv, hd),
-            "shared_attn.wo": (h, hd, d), "shared_attn.mlp_norm": (d,),
-            "shared_attn.w_gate": (d, f), "shared_attn.w_up": (d, f),
-            "shared_attn.w_down": (f, d)})
-    return out
-
-
-def _fan_in(s: Spec, name: str) -> int:
-    leaf = name.split(".")[-1]
-    return {"wo": s.heads * s.head_dim, "w_down": s.d_ff,
-            "out_proj": s.d_inner}.get(leaf, s.d)
+    return family_of(s).param_shapes(s)
 
 
 def seed_of(seed: int, *key) -> int:
@@ -85,6 +58,10 @@ def draw(s: Spec, name: str, shape, seed: int, device) -> torch.Tensor:
     """Leaf ``name`` (fp32) drawn from (seed, name)."""
     leaf = name.split(".")[-1]
     f32 = torch.float32
+    fam = family_of(s)
+    if leaf in getattr(fam, "LAWS", {}):
+        return fam.LAWS[leaf](s, shape, generator(seed, device, "param",
+                                                  name), device)
     if leaf.endswith("norm") or leaf == "D":
         return torch.ones(shape, dtype=f32, device=device)
     g = generator(seed, device, "param", name)
@@ -98,9 +75,7 @@ def draw(s: Spec, name: str, shape, seed: int, device) -> torch.Tensor:
     x = torch.randn(shape, dtype=f32, device=device, generator=g)
     if leaf == "embed":
         return x.mul_(0.02)
-    if leaf.startswith("conv"):
-        return x.mul_(1.0 / math.sqrt(s.conv_k))
-    return x.mul_(1.0 / math.sqrt(_fan_in(s, name)))
+    return x.mul_(1.0 / math.sqrt(fam.fan_in(s, name)))
 
 
 def draw_all(s: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
